@@ -1,0 +1,123 @@
+"""High-level API: coarse registration of Gaussian Splatting models
+(port of the coarse path of gaussreg_tpu/api.py).
+
+Entry points run on CUDA by default and raise without it unless the caller
+passes device="cpu". Where the JAX package takes a parameter tree, the port
+takes the model (an nn.Module holding its weights).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from gaussreg_tpu_torch.config import Config, make_cfg
+from gaussreg_tpu_torch.data.pipeline import make_pair_batch
+from gaussreg_tpu_torch.device import DeviceLike, resolve_device
+from gaussreg_tpu_torch.gs.extract import (
+    adjust_point_cloud_volume,
+    load_point_cloud_from_gs_ply,
+)
+from gaussreg_tpu_torch.gs.ply import write_ply_vertex
+from gaussreg_tpu_torch.models.metrics import unnormalize_transform
+from gaussreg_tpu_torch.models.registration import GaussRegModel
+
+
+def coarse_register_clouds(
+    cfg: Config,
+    model: GaussRegModel,
+    ref_points: np.ndarray,
+    ref_feats: np.ndarray,
+    src_points: np.ndarray,
+    src_feats: np.ndarray,
+    seed: int = 0,
+    device: DeviceLike = None,
+    transform: Optional[np.ndarray] = None,
+) -> Dict:
+    """Run the coarse model on already-normalized clouds. Returns the output
+    dict with 'estimated_transform' in the normalized frame, plus the built
+    'batch'. `transform` (the GT, when known) rides along in the batch."""
+    dev = resolve_device(device)
+    batch = make_pair_batch(
+        cfg, ref_points, ref_feats, src_points, src_feats, transform, device=dev
+    )
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(seed)
+    out = model(batch, generator)
+    out["batch"] = batch
+    return out
+
+
+def register_gs_pair(
+    ref_ply_path: str,
+    src_ply_path: str,
+    model: GaussRegModel,
+    cfg: Optional[Config] = None,
+    point_limit: Optional[int] = None,
+    fine: bool = False,
+    seed: int = 0,
+    device: DeviceLike = None,
+) -> Dict:
+    """Register two 3DGS .ply models: returns {'transform': (4, 4) similarity
+    mapping src into ref's frame, ...}: extract the clouds, volume-normalize,
+    coarse registration, un-normalize."""
+    if fine:
+        raise NotImplementedError(
+            "fine registration (render-and-compare) is ported in a later slice "
+            "with the rasterizer kernels"
+        )
+    cfg = cfg or make_cfg()
+    point_limit = point_limit or cfg.train.point_limit
+
+    ref_points, ref_feats = load_point_cloud_from_gs_ply(ref_ply_path, point_limit, seed=seed)
+    src_points, src_feats = load_point_cloud_from_gs_ply(src_ply_path, point_limit, seed=seed + 1)
+    ref_n, src_n, _, _, ref_scale, src_scale, ref_center, src_center = adjust_point_cloud_volume(
+        ref_points, src_points, np.eye(3), np.zeros(3),
+        min_adjust_volume=30.0, apply_translation=True,
+    )
+    out = coarse_register_clouds(
+        cfg, model, ref_n, ref_feats, src_n, src_feats, seed=seed, device=device
+    )
+    est = out["estimated_transform"].cpu().numpy()
+    transform = unnormalize_transform(est, ref_scale, src_scale, ref_center, src_center)
+    return {
+        "transform": transform,
+        "coarse_transform": transform.copy(),
+        "normalized_transform": est,
+        "ransac_inliers": int(out["ransac_inliers"]),
+        "num_correspondences": int(out["num_correspondences"]),
+        # original-frame extracted clouds, features = [opacity, R, G, B]
+        "ref_points": ref_points,
+        "ref_colors": ref_feats[:, 1:4],
+        "src_points": src_points,
+        "src_colors": src_feats[:, 1:4],
+    }
+
+
+def write_demo_outputs(output_dir: str, result: Dict) -> List[str]:
+    """Write `point_cloud_src_org.ply` / `point_cloud_ref.ply` (original
+    frames), `point_cloud_src.ply` (src mapped into ref's frame by the
+    estimated similarity) and `estimated_transform.npz`."""
+    os.makedirs(output_dir, exist_ok=True)
+    paths = []
+
+    def _write(name, points, colors):
+        p = os.path.join(output_dir, name)
+        cols = {c: points[:, i] for i, c in enumerate("xyz")}
+        for i, c in enumerate(("red", "green", "blue")):
+            cols[c] = colors[:, i]
+        write_ply_vertex(p, cols)
+        paths.append(p)
+
+    t = np.asarray(result["transform"])
+    src = np.asarray(result["src_points"])
+    _write("point_cloud_src_org.ply", src, np.asarray(result["src_colors"]))
+    _write("point_cloud_ref.ply", np.asarray(result["ref_points"]), np.asarray(result["ref_colors"]))
+    _write("point_cloud_src.ply", src @ t[:3, :3].T + t[:3, 3], np.asarray(result["src_colors"]))
+    npz = os.path.join(output_dir, "estimated_transform.npz")
+    np.savez(npz, estimated_transform=t)
+    paths.append(npz)
+    return paths
