@@ -5,8 +5,8 @@
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
-1. build: nvcc compiles every csrc/*.cu kernel (one process per source, in
-   parallel) into gaussreg_tpu_torch/_build/.
+1. build: nvcc compiles every csrc/*.cu kernel (six sources, one process
+   per source, in parallel) into gaussreg_tpu_torch/_build/.
 2. main path: the trained checkpoint (checkpoints/synthetic_coarse.msgpack)
    at make_cfg() width registers the 8 held-out synthetic pairs
    random_pair(cfg, 20_000_000 + i) through api.coarse_register_clouds;
@@ -28,10 +28,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
    take (bytes at 3.35 TB/s or operations at the inputs' peak rate).
 5. profile: one pair under torch.profiler, device time by kernel and the
    device's busy share of the wall time.
+6. fine registration at full width: a synthetic scene of 200 000 gaussians
+   (numpy, from a seed) whose source model is the reference under the
+   inverse of a 1.02-scale, ~1.5-degree, (0.03, -0.02, 0.01) similarity;
+   gs.fine_registration.fine_register from the identity, 4 orbit views of
+   640x480, 100 Adam steps, 32x32 tiles, SH degree 3. Launch counts zeroed
+   before and read after: the backward (K5) and the accumulation (K6)
+   400 each, the forward (K4) at least 404. The losses must be finite, the
+   last under the first, and RRE, RTE and RSE against the known transform
+   each lower than at the start.
+7. fine entry point: api.register_gs_pair(fine=True, fine_steps=20) on the
+   two .ply files (finite, rotation within 5 degrees, K4-K6 launched) and
+   on the reference file against an exact copy of it under the inverse of
+   the known transform (the refinement must not leave the optimum: rotation
+   error not above the coarse one, or under 0.1 degree), then
+   api.gaussian_fuse with the estimated transform: the fused .ply reads
+   back, finite, with between N and 2N gaussians.
+8. rasterizer kernels: the K4/K5/K6 calls of one full-width step (4 views)
+   are replayed on their captured inputs, held against their plain PyTorch
+   versions (limits at `compare_forward`, `compare_backward`,
+   `compare_accumulate`) and timed beside them, beside `index_add_` for K6
+   (K4 and K5 have no single PyTorch call) and beside their bounds (K4 and
+   K5 over the tiles' own pairs of the chunks walked; K6's launch is also
+   timed alone, on ids sorted beforehand); two steps run under
+   torch.profiler.
 
 Prints the build seconds, the card's name and power limit, a line per
-pair, a line per kernel call, the profile, a {"kernels": [...]} JSON line,
-and as the last line {"ok": true, "device": {...}}. Imports nothing of JAX.
+pair, a line per kernel call, the profiles, a {"kernels": [...]} JSON line
+listing all six kernels, and as the last line {"ok": true, "device": {...}}.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -82,17 +107,18 @@ def bound(bytes_moved: float, ops: float, kind: str):
 
 class Capture:
     """Record the arguments of a function looked up as a module attribute
-    (the caller's import), for one forward pass."""
+    (the caller's import), for one forward pass. `record` picks what to keep
+    of each call (default: everything, which keeps the tensors alive)."""
 
-    def __init__(self, module, name):
-        self.module, self.name = module, name
+    def __init__(self, module, name, record=lambda args, kwargs: (args, kwargs)):
+        self.module, self.name, self.record = module, name, record
         self.calls = []
 
     def __enter__(self):
         self.orig = getattr(self.module, self.name)
 
         def wrapper(*args, **kwargs):
-            self.calls.append((args, kwargs))
+            self.calls.append(self.record(args, kwargs))
             return self.orig(*args, **kwargs)
 
         setattr(self.module, self.name, wrapper)
@@ -102,27 +128,30 @@ class Capture:
         setattr(self.module, self.name, self.orig)
 
 
-def measure(name, calls, kernel, plain, compare, library, cost, kind):
+def measure(name, calls, kernel, plain, compare, library, cost, kind, plain_reps: int = 5):
     """Replay each captured call: hold the kernel against its plain version
     (`compare` raises on a mismatch and returns the max abs error), time
-    kernel, plain version and library call, and bound the call's work.
-    Returns the per-call lines and the per-pair totals."""
+    kernel, plain version and library call (None: no single PyTorch call
+    computes the function), and bound the call's work.
+    Returns the per-call lines and the totals over the calls."""
     rows = []
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, err=0.0, bytes=0.0, ops=0.0)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0 if library else None, err=0.0,
+               bytes=0.0, ops=0.0)
     for args, kw in calls:
         err = compare(kernel(*args, **kw), plain(*args, **kw))
-        lib = library(*args, **kw)
         t_k = cuda_ms(lambda: kernel(*args, **kw))
-        t_p = cuda_ms(lambda: plain(*args, **kw))
-        t_l = cuda_ms(lib)
+        t_p = cuda_ms(lambda: plain(*args, **kw), reps=plain_reps)
+        t_l = cuda_ms(library(*args, **kw)) if library else None
         nbytes, ops, shape = cost(*args, **kw)
         b_ms, _ = bound(nbytes, ops, kind)
+        lib_txt = f"{t_l:.4f}ms" if library else "none"
         rows.append(f"{name} {shape}: err={err:.3e} kernel={t_k:.4f}ms plain={t_p:.4f}ms "
-                    f"library={t_l:.4f}ms bound={b_ms:.4f}ms")
+                    f"library={lib_txt} bound={b_ms:.4f}ms")
         tot["err"] = max(tot["err"], err)
-        for key, v in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l),
-                       ("bytes", nbytes), ("ops", ops)):
+        for key, v in (("ms", t_k), ("plain_ms", t_p), ("bytes", nbytes), ("ops", ops)):
             tot[key] += v
+        if library:
+            tot["library_ms"] += t_l
     return rows, tot
 
 
@@ -186,6 +215,172 @@ def select_cost(x, k):
     return r * w * 4 + r * k * 8, float(r * w * k), f"R={r} W={w} k={k}"
 
 
+# f32 operations per pair and pixel, counted from the kernels' sources
+# (csrc/rasterize_fwd.cu, csrc/rasterize_bwd.cu): the exponent 10, min, exp,
+# the band test and cap 2, the weight 1, four multiply-adds 8, the
+# transmittance 2 -> 25 forward; the backward recomputes the first 14 and
+# adds the colour product 7, the prefix 2, d_alpha 6, the band test and
+# d_power 2, the weight and 1 - alpha 2, nine products, the transmittance 1
+# and the ten pixel sums 10 -> 53.
+FINE_GAUSSIANS, FINE_VIEWS, FINE_STEPS, FINE_TILE = 200_000, 4, 100, 32
+K4_OPS_PER_PAIR_PIXEL = 25.0
+K5_OPS_PER_PAIR_PIXEL = 53.0
+MAX_FLIPPED_PIXELS = 16
+
+
+def compare_forward(a, b):
+    """K4. rgb and T within 5e-4 and depth within 5e-3 (the limits the JAX
+    package holds its kernel to against its dense renderer): kernel and
+    plain version round the exponent alike and differ by the order of the
+    colour sums and exp's last bit. A pair whose raw lies within an ulp of
+    1/255 or 0.99 may flip on a pixel and move it by up to 4e-3 (1/255 of a
+    colour near 1; depth by ten times that): such pixels are counted, at
+    most MAX_FLIPPED_PIXELS allowed, none past that move or not finite. kend must be equal except on tiles whose max T lies within
+    1e-3 (relative) of the exit threshold 1e-4."""
+    import torch
+    from gaussreg_tpu_torch.gs.rasterizer import kernels
+
+    (pk, kk), (pp, kp) = a, b
+    torch.cuda.synchronize()
+    # depth is held to ten times the limit of the other planes: scaled so,
+    # one limit serves all five. A NaN is `over` and fails `worst`.
+    diff = (pk - pp).abs()
+    diff[3] /= 10.0
+    err = diff[[0, 1, 2, 4]].max().item()
+    over = ~(diff <= 5e-4).all(dim=0)
+    flipped = int(over.sum())
+    worst = diff[:, over].max().item() if flipped else 0.0
+    log(f"rasterize_forward: {flipped} pixels past 5e-4 (alpha-threshold flips), "
+        f"worst {worst:.3e} (depth / 10)")
+    if flipped > MAX_FLIPPED_PIXELS or not worst <= 4e-3:
+        raise AssertionError(f"rasterize_forward: {flipped} pixels differ, worst {worst}")
+    bad = (kk != kp).nonzero()[:, 0].tolist()
+    if bad:
+        th = tw = FINE_TILE
+        ntx = pk.shape[2] // tw
+        for t in bad:
+            ty, tx = divmod(t, ntx)
+            tile = (slice(ty * th, (ty + 1) * th), slice(tx * tw, (tx + 1) * tw))
+            t_max = [p[4][tile].max().item() for p in (pk, pp)]
+            if min(abs(m - kernels.T_EPS) for m in t_max) > 1e-3 * kernels.T_EPS:
+                raise AssertionError(f"rasterize_forward: kend differs on tile {t}, "
+                                     f"max T {t_max} not at the threshold")
+        log(f"rasterize_forward: kend differs on {len(bad)} tiles at the exit threshold")
+    return err
+
+
+def compare_backward(a, b):
+    """K5. Every row within 2e-3 of its channel's max (the limit the JAX
+    package holds its gradients to): each value is a sum over a tile's 1024
+    pixels, taken in another order by the kernel."""
+    scale = b.abs().amax(dim=0).clamp_min(1e-30)
+    rel = ((a - b).abs() / scale).max().item()
+    if not rel <= 2e-3:
+        raise AssertionError(f"rasterize_backward: rows differ by {rel} of their channel's max")
+    return (a - b).abs().max().item()
+
+
+def compare_accumulate(a, b):
+    """K6. Within 2e-5 of the rows' scale: the kernel adds each run in the
+    stable sort's order, index_add_ in whatever order its atomics land."""
+    err = (a - b).abs().max().item()
+    scale = b.abs().max().item()
+    if not err <= 2e-5 * max(scale, 1e-30):
+        raise AssertionError(f"segment_accumulate err {err} > 2e-5 * {scale}")
+    return err
+
+
+def own_pairs(starts, nchunks, cap):
+    """Pairs the kernels composite when tile t walks its first nchunks[t]
+    chunks: the tile's own rows of those 128-aligned blocks, without the
+    neighbouring tiles' rows that a boundary block also holds."""
+    import torch
+    from gaussreg_tpu_torch.gs.rasterizer import kernels
+
+    s = starts.clamp_max(cap).long()
+    c0, c1 = s[:-1], s[1:]
+    walked_end = (c0 // kernels.CHUNK + nchunks.long()) * kernels.CHUNK
+    return float((torch.minimum(c1, walked_end) - c0).clamp_min(0).sum())
+
+
+def forward_cost(gdata, sorted_gid, starts, height, width, tile_h, tile_w):
+    from gaussreg_tpu_torch.gs.rasterizer import kernels
+
+    _, kend = kernels.rasterize_forward(gdata, sorted_gid, starts, height, width, tile_h, tile_w)
+    pairs = own_pairs(starts, kend, sorted_gid.shape[0])
+    nbytes = pairs * (64 + 4) + 5 * height * width * 4 + starts.numel() * 8
+    return (nbytes, pairs * tile_h * tile_w * K4_OPS_PER_PAIR_PIXEL,
+            f"pairs={int(pairs)} image={height}x{width} G={gdata.shape[0] - 1}")
+
+
+def backward_cost(gdata, sorted_gid, starts, offs, ct_planes, bwd_blocks, height, width,
+                  tile_h, tile_w):
+    pairs = own_pairs(starts, offs[1:] - offs[:-1], sorted_gid.shape[0])
+    nbytes = pairs * (64 + 4 + 64) + 7 * height * width * 4 + starts.numel() * 12
+    return (nbytes, pairs * tile_h * tile_w * K5_OPS_PER_PAIR_PIXEL,
+            f"pairs={int(pairs)} buffer={bwd_blocks} blocks")
+
+
+def accumulate_index_add(rows, gid, num_out):
+    import torch
+
+    idx = gid.long().clamp_max(num_out)
+    return lambda: torch.zeros((num_out + 1, rows.shape[1]), device=rows.device).index_add_(
+        0, idx, rows)
+
+
+def accumulate_cost(rows, gid, num_out):
+    nbytes = rows.numel() * 4 + gid.numel() * 4 + num_out * rows.shape[1] * 4
+    return nbytes, float(rows.numel()), f"R={rows.shape[0]} out={num_out}"
+
+
+def make_fine_scene(n, seed, dev):
+    """The full-width fine-registration scene: `n` random gaussians in a
+    2-unit cube, and the same model under the inverse of a small similarity
+    (scale 1.02, rotation vector (0.02, -0.015, 0.01), translation
+    (0.03, -0.02, 0.01)), the residual a coarse registration leaves.
+    Returns (ref, src, gt) with gt the transform fine_register should find."""
+    import numpy as np
+    import torch
+    from gaussreg_tpu_torch.gs.fine_registration import (
+        gaussians_from_numpy,
+        transform_gaussians_device,
+    )
+    from gaussreg_tpu_torch.ops.transforms import exp_so3
+
+    rng = np.random.default_rng(seed)
+    means = rng.uniform(-1.0, 1.0, size=(n, 3))
+    scales = np.exp(rng.normal(-3.4, 0.4, size=(n, 3)))
+    quats = rng.normal(size=(n, 4))
+    opac = 1 / (1 + np.exp(-rng.normal(1.0, 1.0, size=n)))
+    sh = np.zeros((n, 3, 16))
+    sh[:, :, 0] = rng.uniform(-1, 1, size=(n, 3))
+    sh[:, :, 1:] = rng.normal(scale=0.05, size=(n, 3, 15))
+    ref = gaussians_from_numpy(means, scales, quats, opac, sh, device=dev)
+    gt = torch.eye(4, device=dev)
+    gt[:3, :3] = 1.02 * exp_so3(torch.tensor([0.02, -0.015, 0.01], device=dev))
+    gt[:3, 3] = torch.tensor([0.03, -0.02, 0.01], device=dev)
+    with torch.no_grad():
+        src = transform_gaussians_device(ref, torch.linalg.inv(gt))
+    return ref, src, gt
+
+
+def profile_fine_steps(ref, src, cams, steps: int = 2, top: int = 12):
+    """`steps` fine-registration steps (and their probes) under
+    torch.profiler: device time by kernel and the device's busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gaussreg_tpu_torch.gs.fine_registration import fine_register
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fine_register(ref, src, torch.eye(4), cams, num_steps=steps)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    report_profile(prof, f"fine_register, {steps} steps and their probes", wall_ms, top)
+
+
 def profile_pair(cfg, model, pair, dev, top: int = 15):
     """One registration under torch.profiler: device time by kernel name
     (the heaviest `top`) and the device's busy share of the wall time."""
@@ -200,7 +395,10 @@ def profile_pair(cfg, model, pair, dev, top: int = 15):
         api.coarse_register_clouds(cfg, model, rp, rf, sp, sf, seed=0, device=dev)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    report_profile(prof, "one pair", wall_ms, top)
 
+
+def report_profile(prof, what, wall_ms, top):
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
@@ -209,10 +407,19 @@ def profile_pair(cfg, model, pair, dev, top: int = 15):
     events = [e for e in prof.key_averages()
               if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us(e) > 0]
     busy_ms = sum(dev_us(e) for e in events) / 1e3
-    log(f"profile: one pair, wall {wall_ms:.1f} ms (profiled), device busy {busy_ms:.1f} ms "
+    log(f"profile: {what}, wall {wall_ms:.1f} ms (profiled), device busy {busy_ms:.1f} ms "
         f"({100 * busy_ms / wall_ms:.1f}%), {sum(e.count for e in events)} device kernels")
     for e in sorted(events, key=dev_us, reverse=True)[:top]:
         log(f"profile:   {dev_us(e) / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:90]}")
+
+
+def rot_err(t, gt):
+    """Degrees between the rotations of two (4, 4) similarity transforms."""
+    import numpy as np
+
+    rot = lambda m: m[:3, :3] / np.linalg.norm(m[0, :3])
+    cos = (np.trace(rot(np.asarray(t)).T @ rot(np.asarray(gt))) - 1) / 2
+    return math.degrees(math.acos(np.clip(cos, -1, 1)))
 
 
 def write_scene_plys(directory, cfg, seed):
@@ -266,9 +473,17 @@ def main() -> int:
     from gaussreg_tpu_torch.config import make_cfg
     from gaussreg_tpu_torch.data.synthetic import random_pair
     from gaussreg_tpu_torch.engine.checkpoint import load_checkpoint
+    from gaussreg_tpu_torch.gs import fine_registration as fine_mod
+    from gaussreg_tpu_torch.gs.fusion import transform_gaussians
+    from gaussreg_tpu_torch.gs.ply import load_gaussians, save_gaussians
+    from gaussreg_tpu_torch.gs.rasterizer import accumulate as accumulate_mod
+    from gaussreg_tpu_torch.gs.rasterizer import kernels as raster_mod
     from gaussreg_tpu_torch.models import kpconv as kpconv_mod
     from gaussreg_tpu_torch.models import matching as matching_mod
-    from gaussreg_tpu_torch.models.metrics import evaluate_registration
+    from gaussreg_tpu_torch.models.metrics import (
+        evaluate_registration,
+        isotropic_transform_error,
+    )
     from gaussreg_tpu_torch.models.registration import create_model
     from gaussreg_tpu_torch.ops import fused_select, kpconv_kernel, select_k
     from gaussreg_tpu_torch.ops import neighbors as neighbors_mod
@@ -339,13 +554,11 @@ def main() -> int:
     for name, n in per_pair.items():
         if counts[name] != n:
             raise AssertionError(f"{name}: {counts[name]} launches on the .ply path, expected {n}")
-    r_est = tr[:3, :3] / np.linalg.norm(tr[0, :3])
-    r_gt = gt[:3, :3] / np.linalg.norm(gt[0, :3])
-    rot_err = math.degrees(math.acos(np.clip((np.trace(r_est.T @ r_gt) - 1) / 2, -1, 1)))
+    ply_err = rot_err(tr, gt)
     log(f"ply: register_gs_pair in {t_ply:.3f} s, launches {counts}, "
-        f"inliers={res['ransac_inliers']}, rotation error vs GT {rot_err:.3f} deg")
-    if not rot_err < 5.0:
-        raise AssertionError(f"register_gs_pair rotation error {rot_err} deg")
+        f"inliers={res['ransac_inliers']}, rotation error vs GT {ply_err:.3f} deg")
+    if not ply_err < 5.0:
+        raise AssertionError(f"register_gs_pair rotation error {ply_err} deg")
 
     # 4. kernels against their plain versions, on one pair's captured calls
     seed, (rp, rf, sp, sf, m) = pairs[-1]
@@ -380,6 +593,138 @@ def main() -> int:
             "bound_by": b_by, "library_ms": tot["library_ms"],
         })
     profile_pair(cfg, model, pairs[-1][1], dev)
+
+    # 6. fine registration at full width, launches counted
+    n_fine, steps = FINE_GAUSSIANS, FINE_STEPS
+    t_scene = time.perf_counter()
+    ref_g, src_g, gt_fine = make_fine_scene(n_fine, 0, dev)
+    cams = fine_mod.default_cameras(ref_g.means.cpu().numpy(), num_views=FINE_VIEWS)
+    torch.cuda.synchronize()
+    log(f"fine: scene of {n_fine} gaussians made in {time.perf_counter() - t_scene:.2f} s; "
+        f"{len(cams)} views of {cams[0].width}x{cams[0].height}")
+    start_err = [float(e) for e in isotropic_transform_error(gt_fine, torch.eye(4, device=dev))]
+    _cuda.reset_launch_counts()
+    with Capture(fine_mod, "render",
+                 record=lambda a, kw: kw.get("max_tiles_per_gaussian")) as render_mts:
+        t_fine = time.perf_counter()
+        fine_out = fine_mod.fine_register(ref_g, src_g, torch.eye(4), cams, num_steps=steps)
+        torch.cuda.synchronize()
+        t_fine = time.perf_counter() - t_fine
+    fine_counts = _cuda.launch_counts()
+    losses = fine_out.losses.cpu().numpy()
+    end_err = [float(e) for e in isotropic_transform_error(gt_fine, fine_out.transform)]
+    chosen_mt = render_mts.calls[-1]
+    log(f"fine: fine_register {steps} steps x {len(cams)} views in {t_fine:.3f} s "
+        f"({t_fine / steps * 1e3:.1f} ms per step, probes included); loss {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f}; RRE {start_err[0]:.4f} -> {end_err[0]:.4f} deg, RTE "
+        f"{start_err[1]:.5f} -> {end_err[1]:.5f}, RSE {start_err[2]:.5f} -> {end_err[2]:.5f}; "
+        f"overflow={int(fine_out.overflow)}, max_tiles_per_gaussian={chosen_mt}; "
+        f"launches {fine_counts}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"fine_register losses {losses[0]} -> {losses[-1]}")
+    if not all(e < s0 for e, s0 in zip(end_err, start_err)):
+        raise AssertionError(f"fine_register did not improve: {start_err} -> {end_err}")
+    per_step = steps * len(cams)
+    if not (fine_counts["rasterize_backward"] == per_step
+            and fine_counts["segment_accumulate"] == per_step
+            and fine_counts["rasterize_forward"] >= per_step + len(cams)):
+        raise AssertionError(f"fine_register launches {fine_counts}, expected {per_step} "
+                             "backward and accumulate launches and more forward ones")
+
+    # 7. the fine entry point on .ply files, then fusion
+    def fine_entry_point(what, ref_ply, src_ply, gt):
+        _cuda.reset_launch_counts()
+        t_ply = time.perf_counter()
+        res = api.register_gs_pair(ref_ply, src_ply, model, cfg, fine=True, fine_steps=20,
+                                   device=dev)
+        t_ply = time.perf_counter() - t_ply
+        counts = _cuda.launch_counts()
+        tr = np.asarray(res["transform"])
+        if tr.shape != (4, 4) or not np.isfinite(tr).all():
+            raise AssertionError(f"register_gs_pair(fine=True) gave {tr}")
+        errs = rot_err(res["coarse_transform"], gt), rot_err(tr, gt)
+        log(f"ply fine ({what}): register_gs_pair(fine=True, 20 steps) in {t_ply:.3f} s, "
+            f"launches {counts}, rotation error vs GT {errs[0]:.3f} (coarse) -> {errs[1]:.3f} deg, "
+            f"loss {res['fine_losses'][0]:.6f} -> {res['fine_losses'][-1]:.6f}")
+        if not all(counts[k] > 0 for k in ("rasterize_forward", "rasterize_backward",
+                                           "segment_accumulate")):
+            raise AssertionError(f"the fine entry point did not launch K4-K6: {counts}")
+        return tr, errs
+
+    with tempfile.TemporaryDirectory() as tmp:
+        (ref_ply, src_ply), gt = write_scene_plys(tmp, cfg, 20_000_100)
+        # two samplings of one scene that overlap in part: the photometric
+        # optimum need not be the known transform, so only the 5-degree gate
+        tr, errs = fine_entry_point("two samplings", ref_ply, src_ply, gt)
+        if not errs[1] < 5.0:
+            raise AssertionError(f"register_gs_pair(fine=True) rotation error {errs[1]} deg")
+        # the reference model itself under the inverse transform: here the
+        # refinement has an exact optimum and must not leave it
+        copy_ply = os.path.join(tmp, "copy.ply")
+        save_gaussians(copy_ply, transform_gaussians(load_gaussians(ref_ply),
+                                                     np.linalg.inv(gt), device=dev))
+        _, errs = fine_entry_point("exact copy", ref_ply, copy_ply, gt)
+        if not errs[1] < max(errs[0], 0.1):
+            raise AssertionError(f"fine registration of an exact copy: {errs[0]} -> {errs[1]} deg")
+
+        npz, fused_ply = os.path.join(tmp, "t.npz"), os.path.join(tmp, "fused.ply")
+        np.savez(npz, estimated_transform=tr)
+        api.gaussian_fuse(ref_ply, src_ply, npz, fused_ply, device=dev)
+        fused = load_gaussians(fused_ply)
+        n_in = min(load_gaussians(ref_ply).num_gaussians, load_gaussians(src_ply).num_gaussians)
+    log(f"fuse: gaussian_fuse wrote {fused.num_gaussians} gaussians from 2 x ~{n_in}")
+    fields = (fused.xyz, fused.f_dc, fused.f_rest, fused.opacity, fused.scales, fused.rots)
+    if not (all(np.isfinite(f).all() for f in fields) and n_in <= fused.num_gaussians <= 2 * n_in):
+        raise AssertionError(f"gaussian_fuse wrote {fused.num_gaussians} gaussians from 2 x {n_in}")
+
+    # 8. K4-K6 against their plain versions on one full-width step's calls
+    with Capture(raster_mod, "rasterize_forward") as c4, \
+            Capture(raster_mod, "rasterize_backward") as c5, \
+            Capture(raster_mod, "segment_accumulate") as c6:
+        fine_mod.fine_register(ref_g, src_g, torch.eye(4), cams, num_steps=1)
+    torch.cuda.synchronize()
+    nv = len(cams)  # the step's renders are the last calls; the probes come before
+    for name, calls, kernel, plain, compare, library, cost, src, replaces in (
+        ("rasterize_forward", c4.calls[-nv:], raster_mod.rasterize_forward,
+         raster_mod.rasterize_forward_plain, compare_forward, None, forward_cost,
+         "gaussreg_tpu_torch/csrc/rasterize_fwd.cu", "gaussreg_tpu/gs/rasterizer/kernels.py:395"),
+        ("rasterize_backward", c5.calls[-nv:], raster_mod.rasterize_backward,
+         raster_mod.rasterize_backward_plain, compare_backward, None, backward_cost,
+         "gaussreg_tpu_torch/csrc/rasterize_bwd.cu", "gaussreg_tpu/gs/rasterizer/kernels.py:442"),
+        ("segment_accumulate", c6.calls[-nv:], accumulate_mod.segment_accumulate,
+         accumulate_mod.segment_accumulate_plain, compare_accumulate, accumulate_index_add,
+         accumulate_cost, "gaussreg_tpu_torch/csrc/segment_accumulate.cu",
+         "gaussreg_tpu/gs/rasterizer/accumulate.py:131"),
+    ):
+        with torch.no_grad():  # the captured gdata is a leaf of the step's graph
+            rows, tot = measure(name, calls, kernel, plain, compare, library, cost, "f32",
+                                plain_reps=2)
+        for row in rows:
+            log(row)
+        b_ms, b_by = bound(tot["bytes"], tot["ops"], "f32")
+        if name == "segment_accumulate":
+            # `ms` times the wrapper (sort, run bounds, kernel), the function
+            # that the plain version and index_add_ compute; the bound is the
+            # segment sum's alone, so the launch alone is timed beside it
+            launch_ms = 0.0
+            for (rows_, gid_, num_out_), _ in calls:
+                runs = accumulate_mod.sorted_runs(gid_, num_out_)
+                launch_ms += cuda_ms(
+                    lambda: accumulate_mod.accumulate_runs(rows_, *runs, num_out_))
+            log(f"{name}: the kernel launch alone (ids sorted beforehand) {launch_ms:.3f} ms "
+                f"of the wrapper's {tot['ms']:.3f} ms")
+        lib_txt = "none" if tot["library_ms"] is None else f"{tot['library_ms']:.3f} ms"
+        log(f"{name}: {len(calls)} calls per step, kernel {tot['ms']:.3f} ms, plain "
+            f"{tot['plain_ms']:.3f} ms, library {lib_txt}, bound {b_ms:.3f} ms ({b_by})")
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": fine_counts[name], "max_abs_err": tot["err"],
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": tot["library_ms"],
+        })
+        if name == "segment_accumulate":
+            kernels[-1]["launch_ms"] = launch_ms
+    profile_fine_steps(ref_g, src_g, cams)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

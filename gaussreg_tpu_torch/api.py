@@ -1,5 +1,6 @@
-"""High-level API: coarse registration of Gaussian Splatting models
-(port of the coarse path of gaussreg_tpu/api.py).
+"""High-level API: register and fuse Gaussian Splatting models (port of
+gaussreg_tpu/api.py): coarse registration, optional render-and-compare
+refinement, and the re-export of `gaussian_fuse`.
 
 Entry points run on CUDA by default and raise without it unless the caller
 passes device="cpu". Where the JAX package takes a parameter tree, the port
@@ -17,11 +18,18 @@ import torch
 from gaussreg_tpu_torch.config import Config, make_cfg
 from gaussreg_tpu_torch.data.pipeline import make_pair_batch
 from gaussreg_tpu_torch.device import DeviceLike, resolve_device
+from gaussreg_tpu_torch.gs.cameras import find_cameras_json, load_cameras_json
 from gaussreg_tpu_torch.gs.extract import (
     adjust_point_cloud_volume,
     load_point_cloud_from_gs_ply,
 )
-from gaussreg_tpu_torch.gs.ply import write_ply_vertex
+from gaussreg_tpu_torch.gs.fine_registration import (
+    default_cameras,
+    fine_register,
+    to_device_gaussians,
+)
+from gaussreg_tpu_torch.gs.fusion import gaussian_fuse  # noqa: F401 (re-export)
+from gaussreg_tpu_torch.gs.ply import load_gaussians, write_ply_vertex
 from gaussreg_tpu_torch.models.metrics import unnormalize_transform
 from gaussreg_tpu_torch.models.registration import GaussRegModel
 
@@ -58,17 +66,20 @@ def register_gs_pair(
     cfg: Optional[Config] = None,
     point_limit: Optional[int] = None,
     fine: bool = False,
+    fine_steps: int = 100,
+    max_fine_gaussians: int = 200000,
+    cameras_json: Optional[str] = None,
+    fine_views: int = 4,
     seed: int = 0,
     device: DeviceLike = None,
 ) -> Dict:
     """Register two 3DGS .ply models: returns {'transform': (4, 4) similarity
     mapping src into ref's frame, ...}: extract the clouds, volume-normalize,
-    coarse registration, un-normalize."""
-    if fine:
-        raise NotImplementedError(
-            "fine registration (render-and-compare) is ported in a later slice "
-            "with the rasterizer kernels"
-        )
+    coarse registration, un-normalize; with `fine`, refine the result by
+    render-and-compare (gs/fine_registration.py) from the viewpoints of a
+    cameras.json (given, or found next to the ref model) or from synthetic
+    orbit views."""
+    dev = resolve_device(device)
     cfg = cfg or make_cfg()
     point_limit = point_limit or cfg.train.point_limit
 
@@ -79,11 +90,11 @@ def register_gs_pair(
         min_adjust_volume=30.0, apply_translation=True,
     )
     out = coarse_register_clouds(
-        cfg, model, ref_n, ref_feats, src_n, src_feats, seed=seed, device=device
+        cfg, model, ref_n, ref_feats, src_n, src_feats, seed=seed, device=dev
     )
     est = out["estimated_transform"].cpu().numpy()
     transform = unnormalize_transform(est, ref_scale, src_scale, ref_center, src_center)
-    return {
+    result = {
         "transform": transform,
         "coarse_transform": transform.copy(),
         "normalized_transform": est,
@@ -95,6 +106,21 @@ def register_gs_pair(
         "src_points": src_points,
         "src_colors": src_feats[:, 1:4],
     }
+    if fine:
+        ref_g = to_device_gaussians(load_gaussians(ref_ply_path), max_fine_gaussians, device=dev)
+        src_g = to_device_gaussians(load_gaussians(src_ply_path), max_fine_gaussians, device=dev)
+        # the fine render compares views of the REF frame, so ref's cameras
+        # are the right ones
+        cams_path = cameras_json or find_cameras_json(ref_ply_path)
+        if cams_path is not None:
+            cams = load_cameras_json(cams_path, max_cameras=fine_views, max_size=640)
+            result["fine_cameras"] = cams_path
+        else:
+            cams = default_cameras(ref_g.means.cpu().numpy(), num_views=fine_views)
+        fine_out = fine_register(ref_g, src_g, transform, cams, num_steps=fine_steps)
+        result["transform"] = fine_out.transform.cpu().numpy()
+        result["fine_losses"] = fine_out.losses.cpu().numpy()
+    return result
 
 
 def write_demo_outputs(output_dir: str, result: Dict) -> List[str]:

@@ -1,9 +1,16 @@
-"""Real spherical harmonics evaluation of 3DGS SH color coefficients, in
-numpy (port of the evaluation half of gaussreg_tpu/gs/sh.py; the per-band
-SH rotation belongs to the fusion slice).
+"""Real spherical harmonics: evaluation and rotation of 3DGS SH color
+coefficients (port of gaussreg_tpu/gs/sh.py).
+
+`eval_sh` is plain arithmetic and takes numpy arrays (the host front end)
+or torch tensors (the renderer, with gradient) alike. The per-band rotation
+is the least-squares fit of the JAX package, with the same fixed direction
+sets and pseudo-inverses, so the operators equal the JAX ones.
 """
 
 from __future__ import annotations
+
+import numpy as np
+import torch
 
 C0 = 0.28209479177387814
 C1 = 0.4886025119029199
@@ -97,3 +104,73 @@ def rgb_to_sh(rgb):
 
 def sh_to_rgb(sh):
     return sh * C0 + 0.5
+
+
+def _band_columns(band: int, x, y, z):
+    """The 2*band+1 basis functions of one SH band at directions (x, y, z)."""
+    if band == 1:
+        return [-C1 * y, C1 * z, -C1 * x]
+    xx, yy, zz = x * x, y * y, z * z
+    if band == 2:
+        return [
+            C2[0] * x * y,
+            C2[1] * y * z,
+            C2[2] * (2.0 * zz - xx - yy),
+            C2[3] * x * z,
+            C2[4] * (xx - yy),
+        ]
+    if band == 3:
+        return [
+            C3[0] * y * (3 * xx - yy),
+            C3[1] * x * y * z,
+            C3[2] * y * (4 * zz - xx - yy),
+            C3[3] * z * (2 * zz - 3 * xx - 3 * yy),
+            C3[4] * x * (4 * zz - xx - yy),
+            C3[5] * z * (xx - yy),
+            C3[6] * x * (xx - 3 * yy),
+        ]
+    raise ValueError(band)
+
+
+# Fixed deterministic unit directions, overdetermined (2x the band dim) so
+# the least-squares fit is well conditioned for every band.
+def _fixed_dirs(k: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(k, 3))
+    return d / np.linalg.norm(d, axis=1, keepdims=True)
+
+
+_DIRS = {1: _fixed_dirs(8, 11), 2: _fixed_dirs(12, 22), 3: _fixed_dirs(16, 33)}
+# pseudo-inverses of the (num_dirs, band_dim) basis matrices
+_PINV = {
+    band: np.linalg.pinv(
+        np.stack(_band_columns(band, d[:, 0], d[:, 1], d[:, 2]), axis=-1).astype(np.float32)
+    )
+    for band, d in _DIRS.items()
+}
+
+
+def band_rotation_operators(rotation: torch.Tensor):
+    """Per-band SH rotation operators M_b (k_b x k_b) such that rotated
+    coefficients are c' = c @ M_b: M = pinv(Y(dirs)) @ Y(R dirs). Exact for
+    band-limited SH; differentiable in `rotation`."""
+    ops = {}
+    for band in (1, 2, 3):
+        dirs = torch.as_tensor(_DIRS[band], dtype=rotation.dtype, device=rotation.device)
+        d = dirs @ rotation.T
+        y_rot = torch.stack(_band_columns(band, d[:, 0], d[:, 1], d[:, 2]), dim=-1)
+        pinv = torch.as_tensor(_PINV[band], dtype=rotation.dtype, device=rotation.device)
+        ops[band] = pinv @ y_rot
+    return ops
+
+
+def rotate_sh_rest(f_rest: torch.Tensor, rotation: torch.Tensor) -> torch.Tensor:
+    """Rotate the non-DC SH coefficients of 3DGS gaussians.
+
+    f_rest: (N, 3, 15) bands 1..3 coefficients (3DGS layout); rotation:
+    (3, 3) rotation applied to the scene. Returns (N, 3, 15)."""
+    ops = band_rotation_operators(rotation)
+    return torch.cat(
+        [f_rest[..., 0:3] @ ops[1], f_rest[..., 3:8] @ ops[2], f_rest[..., 8:15] @ ops[3]],
+        dim=-1,
+    )

@@ -135,6 +135,7 @@ def _build(kernels: Sequence[CudaKernel]) -> float:
 def build_all() -> float:
     """Build every registered kernel (importing the modules that define
     them first). Returns the wall seconds nvcc took."""
+    from gaussreg_tpu_torch.gs.rasterizer import accumulate, kernels  # noqa: F401
     from gaussreg_tpu_torch.ops import fused_select, kpconv_kernel, select_k  # noqa: F401
 
     return _build(list(KERNELS.values()))

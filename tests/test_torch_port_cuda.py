@@ -81,3 +81,164 @@ def test_wrappers_reject_bad_input(cuda):
         sk.select_min_k(torch.zeros(4, 8, device=cuda, dtype=torch.float64), 2)
     with pytest.raises(ValueError):
         sk.select_min_k(torch.zeros(4, 8, device=cuda), 9)
+
+
+# ---- the rasterizer kernels (K4, K5, K6) ----
+#
+# K4: rgb and T within 5e-4, depth within 5e-3 (the limits of the JAX
+# package's own kernel-against-reference test), kend equal: both versions
+# round the exponent alike, so they differ only by the order of the colour
+# sums and by exp's last bit. K5: rows within 2e-3 of each channel's max
+# (sums over 1024 pixels in another order). K6: within 2e-5 of the rows'
+# scale (the same additions in the same order; exact in practice).
+
+
+def _pairs_scene(cuda, n, seed, width, height, tile=32, opacity_boost=1.0, z_front=False):
+    """A projected scene's rasterizer inputs on the card: gdata, sorted_gid,
+    starts (through the port's own projection and binning)."""
+    from gaussreg_tpu_torch.gs.rasterizer import kernels
+    from gaussreg_tpu_torch.gs.rasterizer.binning import bin_gaussians
+    from gaussreg_tpu_torch.gs.rasterizer.camera import look_at_camera
+    from gaussreg_tpu_torch.gs.rasterizer.project import project_gaussians
+
+    rng = np.random.default_rng(seed)
+    means = rng.uniform(-1, 1, size=(n, 3)).astype(np.float32)
+    if z_front:
+        means[:, 2] = rng.uniform(-1.0, 0.5, size=n)
+    scales = np.exp(rng.normal(-2.5, 0.4, size=(n, 3))).astype(np.float32)
+    quats = rng.normal(size=(n, 4)).astype(np.float32)
+    opac = (1 / (1 + np.exp(-rng.normal(1.0, 1.0, size=n)))).astype(np.float32)
+    opac = np.minimum(opac * opacity_boost, 0.99).astype(np.float32)
+    sh = np.zeros((n, 3, 16), np.float32)
+    sh[:, :, 0] = rng.uniform(-1, 1, size=(n, 3))
+    t = lambda a: torch.from_numpy(a).to(cuda)
+    cam = look_at_camera([0, 0, -4.0], [0, 0, 0], [0, 1, 0], 60, width, height)
+    proj = project_gaussians(t(means), t(scales), t(quats), t(opac), t(sh), cam)
+    b = bin_gaussians(proj.means2d, proj.radii, proj.depths, width, height,
+                      tile_w=tile, tile_h=tile, max_tiles_per_gaussian=32,
+                      extents=proj.extents, minor=proj.minor)
+    coeffs = kernels.quadratic_coeffs(proj.means2d, proj.conics, proj.opacities)
+    z2 = torch.zeros((n, 2), device=cuda)
+    gdata = torch.cat([coeffs, z2, proj.colors, proj.depths[:, None], z2, z2], dim=1)
+    sentinel = torch.zeros((1, 16), device=cuda)
+    sentinel[0, 0] = -1e30
+    return torch.cat([gdata, sentinel]).contiguous(), b.sorted_gid, b.starts
+
+
+def _check_forward(gdata, gid, starts, height, width, tile):
+    from gaussreg_tpu_torch.gs.rasterizer import kernels
+
+    before = kernels.FWD_KERNEL.launches
+    planes_k, kend_k = kernels.rasterize_forward(gdata, gid, starts, height, width, tile, tile)
+    torch.cuda.synchronize()
+    assert kernels.FWD_KERNEL.launches == before + 1
+    planes_p, kend_p = kernels.rasterize_forward_plain(gdata, gid, starts, height, width, tile, tile)
+    assert torch.equal(kend_k, kend_p)
+    assert (planes_k[[0, 1, 2, 4]] - planes_p[[0, 1, 2, 4]]).abs().max().item() <= 5e-4
+    assert (planes_k[3] - planes_p[3]).abs().max().item() <= 5e-3
+    return planes_k, kend_k
+
+
+def _check_backward(gdata, gid, starts, planes, kend, height, width, tile, bwd_blocks):
+    from gaussreg_tpu_torch.gs.rasterizer import kernels
+
+    gen = torch.Generator(device=gdata.device).manual_seed(0)
+    d = torch.randn(5, height, width, device=gdata.device, generator=gen)
+    v = (d[:4] * planes[:4]).sum(0)
+    ct = torch.cat([d, planes[4:5], v[None]]).contiguous()
+    offs = kernels.compacted_offsets(kend, bwd_blocks)
+    before = kernels.BWD_KERNEL.launches
+    rows_k = kernels.rasterize_backward(gdata, gid, starts, offs, ct, bwd_blocks, height, width, tile, tile)
+    torch.cuda.synchronize()
+    assert kernels.BWD_KERNEL.launches == before + 1
+    rows_p = kernels.rasterize_backward_plain(gdata, gid, starts, offs, ct, bwd_blocks, height, width, tile, tile)
+    scale = rows_p.abs().amax(dim=0).clamp_min(1e-20)
+    assert ((rows_k - rows_p).abs() / scale).max().item() <= 2e-3
+    assert torch.equal(rows_k[:, [6, 7, 12, 13, 14, 15]], torch.zeros_like(rows_k[:, :6]))
+    return rows_k, offs
+
+
+@pytest.mark.parametrize(
+    "n,width,height,tile,boost,front",
+    [
+        (300, 128, 64, 32, 1.0, False),  # sparse: tiles inside one 128-block, empty tiles
+        (4000, 128, 64, 32, 4.0, True),  # a saturating slab: early exits, kend < chunks
+        (600, 64, 64, 16, 1.0, False),  # 16x16 tiles: 256 threads per block
+    ],
+)
+def test_rasterize_kernels_match_plain(cuda, n, width, height, tile, boost, front):
+    from gaussreg_tpu_torch.gs.rasterizer import kernels
+
+    gdata, gid, starts = _pairs_scene(cuda, n, n, width, height, tile, boost, front)
+    planes, kend = _check_forward(gdata, gid, starts, height, width, tile)
+    if front:
+        assert (kend < torch.div(starts[1:] - starts[:-1] + 127, 128, rounding_mode="floor")).any()
+    full = gid.shape[0] // kernels.CHUNK + kend.shape[0]
+    _check_backward(gdata, gid, starts, planes, kend, height, width, tile, full)
+    # a cap that clips: the last tiles lose their chunks, nothing past it is written
+    clipped = max(1, int(kend.sum()) // 2)
+    rows, offs = _check_backward(gdata, gid, starts, planes, kend, height, width, tile, clipped)
+    assert int(offs[-1]) == clipped and rows.shape[0] == clipped * kernels.CHUNK
+
+
+def test_rasterize_empty_and_one_block_tiles(cuda):
+    """An image whose gaussians all sit in one tile: every other tile is
+    empty (kend 0, T = 1, colour 0) and the busy tile's range starts and
+    ends inside one 128-block."""
+    from gaussreg_tpu_torch.gs.rasterizer import kernels
+
+    g = 5
+    gdata = torch.zeros((g + 1, 16), device=cuda)
+    gdata[:g, 0] = -0.1  # a0
+    gdata[:g, 3] = gdata[:g, 5] = -1e-3  # axx, ayy: wide blobs around the origin
+    gdata[:g, 8:12] = torch.rand((g, 4), device=cuda)
+    gdata[g, 0] = -1e30
+    gid = torch.full((128,), g, dtype=torch.int32, device=cuda)
+    gid[3:8] = torch.arange(g, dtype=torch.int32, device=cuda)
+    starts = torch.tensor([3, 3, 8, 8, 8], dtype=torch.int32, device=cuda)  # tile 1 owns [3, 8)
+    planes, kend = _check_forward(gdata, gid, starts, 32, 128, 32)
+    assert kend.tolist() == [0, 1, 0, 0]
+    assert torch.equal(planes[4, :, :32], torch.ones(32, 32, device=cuda))
+    assert planes[:4, :, 64:].abs().max().item() == 0.0
+    rows, _ = _check_backward(gdata, gid, starts, planes, kend, 32, 128, 32, 2)
+    assert rows[3:8].abs().max().item() > 0 and rows[8:].abs().max().item() == 0
+
+
+def test_rasterize_gradients_match_plain_path(cuda):
+    """rasterize_gaussians end to end on the card (K4 + K5 + K6) against the
+    same autograd.Function on the CPU (the plain versions)."""
+    from gaussreg_tpu_torch.gs.rasterizer import kernels
+
+    gdata, gid, starts = _pairs_scene(cuda, 500, 3, 128, 64)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        x = gdata.detach().to(dev).clone().requires_grad_(True)
+        rgb, depth, t, _ = kernels.rasterize_gaussians(x, gid.to(dev), starts.to(dev), 64, 128)
+        w = torch.linspace(0.5, 1.5, rgb.numel(), device=dev).reshape(rgb.shape)
+        ((rgb * w).sum() + 0.3 * t.sum() + 0.05 * depth.sum()).backward()
+        outs.append(x.grad.cpu())
+    scale = outs[1].abs().amax(dim=0).clamp_min(1e-20)
+    assert ((outs[0] - outs[1]).abs() / scale).max().item() <= 2e-3
+
+
+@pytest.mark.parametrize("case", ["random", "one_gaussian", "dropped"])
+def test_segment_accumulate_kernel_matches_plain(cuda, case):
+    from gaussreg_tpu_torch.gs.rasterizer import accumulate as acc
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    r, num_out = 128 * 37, 1001
+    rows = torch.randn(r, 16, device=cuda, generator=gen)
+    gid = torch.randint(0, num_out, (r,), device=cuda, generator=gen, dtype=torch.int32)
+    if case == "one_gaussian":
+        gid[:] = 7  # every row on one gaussian: one long run
+    elif case == "dropped":
+        gid[::3] = num_out  # ids past the table are dropped
+    before = acc.KERNEL.launches
+    out_k = acc.segment_accumulate(rows, gid, num_out)
+    torch.cuda.synchronize()
+    assert acc.KERNEL.launches == before + 1
+    out_p = acc.segment_accumulate_plain(rows.cpu(), gid.cpu(), num_out)  # sequential adds
+    assert (out_k.cpu() - out_p).abs().max().item() <= 2e-5 * rows.abs().max().item() * (
+        r if case == "one_gaussian" else 1
+    )
+    assert torch.equal(out_k, acc.segment_accumulate(rows, gid, num_out))  # repeats exactly
