@@ -46,12 +46,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    back, finite, with between N and 2N gaussians.
 8. rasterizer kernels: the K4/K5/K6 calls of one full-width step (4 views)
    are replayed on their captured inputs, held against their plain PyTorch
-   versions (limits at `compare_forward`, `compare_backward`,
-   `compare_accumulate`) and timed beside them, beside `index_add_` for K6
-   (K4 and K5 have no single PyTorch call) and beside their bounds (K4 and
-   K5 over the tiles' own pairs of the chunks walked; K6's launch is also
-   timed alone, on ids sorted beforehand); two steps run under
-   torch.profiler.
+   versions (limits at `compare_forward`, `compare_backward`; K6 equal bit
+   for bit to its plain version and to `index_add_` on the compacted ids on
+   the host, which adds in row order) and timed beside them and beside
+   their bounds (K4 and K5 over the tiles' own pairs of the chunks walked).
+   K6 is timed as the path pays for it: the pair table that the backward
+   of each differentiated render builds from the binning's sort, plus the
+   accumulation, beside `index_add_` on the card (K4 and K5 have no single
+   PyTorch call). The backward of one differentiated render per view runs
+   under torch.profiler, which counts its sort and searchsorted launches;
+   two steps run under torch.profiler, which also counts the sort kernels
+   by name.
 
 Prints the build seconds, the card's name and power limit, a line per
 pair, a line per kernel call, the profiles, a {"kernels": [...]} JSON line
@@ -280,16 +285,6 @@ def compare_backward(a, b):
     return (a - b).abs().max().item()
 
 
-def compare_accumulate(a, b):
-    """K6. Within 2e-5 of the rows' scale: the kernel adds each run in the
-    stable sort's order, index_add_ in whatever order its atomics land."""
-    err = (a - b).abs().max().item()
-    scale = b.abs().max().item()
-    if not err <= 2e-5 * max(scale, 1e-30):
-        raise AssertionError(f"segment_accumulate err {err} > 2e-5 * {scale}")
-    return err
-
-
 def own_pairs(starts, nchunks, cap):
     """Pairs the kernels composite when tile t walks its first nchunks[t]
     chunks: the tile's own rows of those 128-aligned blocks, without the
@@ -321,17 +316,71 @@ def backward_cost(gdata, sorted_gid, starts, offs, ct_planes, bwd_blocks, height
             f"pairs={int(pairs)} buffer={bwd_blocks} blocks")
 
 
-def accumulate_index_add(rows, gid, num_out):
+def accumulate_cost(grad_rows, slot_pos, row_gid, starts, offs, cap, num_out):
+    """K6's bytes: the gradient rows of the walked pairs (64 B each), the
+    table (4 B per slot), row_gid, starts and offs read once, the (G + 1)
+    64-byte output rows written once; one f32 add per walked pair and
+    channel."""
+    from gaussreg_tpu_torch.gs.rasterizer import accumulate
+
+    pairs = float(accumulate.pair_rows(slot_pos, starts, offs, cap)[1].sum())
+    nbytes = (pairs * 64 + slot_pos.numel() * 4 + row_gid.numel() * 4
+              + (starts.numel() + offs.numel()) * 4 + num_out * 64)
+    return nbytes, pairs * 16, (f"pairs={int(pairs)} table={tuple(slot_pos.shape)} "
+                                f"buffer={grad_rows.shape[0]} out={num_out}")
+
+
+def measure_accumulate(c5_calls, c6_calls, table_calls):
+    """K6 on one step's captured calls: equal bit for bit to its plain
+    version and to index_add_ on the compacted ids on the host (sequential,
+    in row order); timed as the path pays for it (the backward's pair table
+    plus the accumulation), beside the launch alone, the plain
+    version and index_add_ on the card. Returns the per-call lines and the
+    totals."""
     import torch
+    from gaussreg_tpu_torch.gs.rasterizer import accumulate, binning, kernels
 
-    idx = gid.long().clamp_max(num_out)
-    return lambda: torch.zeros((num_out + 1, rows.shape[1]), device=rows.device).index_add_(
-        0, idx, rows)
-
-
-def accumulate_cost(rows, gid, num_out):
-    nbytes = rows.numel() * 4 + gid.numel() * 4 + num_out * rows.shape[1] * 4
-    return nbytes, float(rows.numel()), f"R={rows.shape[0]} out={num_out}"
+    rows = []
+    tot = dict(ms=0.0, launch_ms=0.0, table_ms=0.0, plain_ms=0.0, library_ms=0.0, err=0.0,
+               bytes=0.0, ops=0.0)
+    tables = [tab for tab, _ in table_calls]  # (order, n_rows, mt) per backward
+    for (a5, _), (a6, _) in zip(c5_calls, c6_calls):  # in the backward's order
+        sorted_gid, bwd_blocks = a5[1], a5[5]
+        grad_rows, slot_pos, row_gid, starts, offs, cap, num_out = a6
+        # the backward's table build, found by rebuilding it (it must repeat)
+        tab = next((t for t in tables if torch.equal(binning.slot_positions(*t), slot_pos)), None)
+        if tab is None:
+            raise AssertionError("no pair table of the step rebuilds the backward's table")
+        out_k = accumulate.accumulate_pairs(*a6)
+        out_p = accumulate.accumulate_pairs_plain(*a6)
+        ids = kernels.compacted_gids(sorted_gid, starts, offs, bwd_blocks, drop_id=num_out)
+        oracle = accumulate.segment_accumulate_plain(grad_rows.cpu(), ids.cpu(), num_out)
+        oracle[num_out - 1] = 0.0  # the sentinel row (the backward's old rule)
+        if not (torch.equal(out_k, out_p) and torch.equal(out_k.cpu(), oracle)):
+            raise AssertionError("segment_accumulate differs from its plain version or from "
+                                 "index_add_ on the compacted ids")
+        # short eager launches: more repetitions and warm-ups than elsewhere,
+        # path and index_add_ in turns
+        idx = ids.long()
+        index_add = lambda: torch.zeros((num_out + 1, 16), device=grad_rows.device).index_add_(
+            0, idx, grad_rows)
+        path = lambda: (binning.slot_positions(*tab), accumulate.accumulate_pairs(*a6))
+        t_l = cuda_ms(index_add, reps=20, warmup=3)
+        t_path = cuda_ms(path, reps=20, warmup=3)
+        t_path = (t_path + cuda_ms(path, reps=20, warmup=3)) / 2
+        t_l = (t_l + cuda_ms(index_add, reps=20, warmup=3)) / 2
+        t_launch = cuda_ms(lambda: accumulate.accumulate_pairs(*a6), reps=20, warmup=3)
+        t_table = cuda_ms(lambda: binning.slot_positions(*tab), reps=20, warmup=3)
+        t_p = cuda_ms(lambda: accumulate.accumulate_pairs_plain(*a6), reps=2)
+        nbytes, ops, shape = accumulate_cost(*a6)
+        b_ms, _ = bound(nbytes, ops, "f32")
+        rows.append(f"segment_accumulate {shape}: equal, path (table + accumulation)="
+                    f"{t_path:.4f}ms (table {t_table:.4f}ms, accumulation {t_launch:.4f}ms) "
+                    f"plain={t_p:.4f}ms index_add_={t_l:.4f}ms bound={b_ms:.4f}ms")
+        for key, v in (("ms", t_path), ("launch_ms", t_launch), ("table_ms", t_table),
+                       ("plain_ms", t_p), ("library_ms", t_l), ("bytes", nbytes), ("ops", ops)):
+            tot[key] += v
+    return rows, tot
 
 
 def make_fine_scene(n, seed, dev):
@@ -363,6 +412,29 @@ def make_fine_scene(n, seed, dev):
     with torch.no_grad():
         src = transform_gaussians_device(ref, torch.linalg.inv(gt))
     return ref, src, gt
+
+
+def profile_backward(ref, cams):
+    """One differentiated render per view at full width, then its backward
+    alone under torch.profiler: counts the sort and searchsorted launches
+    (the accumulation needs none; the binning sorts in the forward)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gaussreg_tpu_torch.gs.rasterizer.render import render
+
+    means = ref.means.detach().clone().requires_grad_(True)
+    loss = sum(render(means, ref.scales, ref.quats, ref.opacities, ref.sh_coeffs, cam,
+                      valid=ref.valid).rgb.sum() for cam in cams)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        loss.backward()
+        torch.cuda.synchronize()
+    names = [e.key.lower() for e in prof.key_averages() for _ in range(e.count)]
+    sorts = sum("sort" in n for n in names)
+    searches = sum("searchsorted" in n for n in names)
+    log(f"backward of {len(cams)} renders: {len(names)} device kernels, {sorts} sort and "
+        f"{searches} searchsorted launches")
 
 
 def profile_fine_steps(ref, src, cams, steps: int = 2, top: int = 12):
@@ -407,8 +479,15 @@ def report_profile(prof, what, wall_ms, top):
     events = [e for e in prof.key_averages()
               if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us(e) > 0]
     busy_ms = sum(dev_us(e) for e in events) / 1e3
+    count = lambda *words: sum(e.count for e in events
+                               if any(w in e.key.lower() for w in words))
+    for e in events:  # every sort kernel, by name
+        if "sort" in e.key.lower():
+            log(f"profile:   sort kernel {e.count:5d}x  {e.key[:110]}")
     log(f"profile: {what}, wall {wall_ms:.1f} ms (profiled), device busy {busy_ms:.1f} ms "
-        f"({100 * busy_ms / wall_ms:.1f}%), {sum(e.count for e in events)} device kernels")
+        f"({100 * busy_ms / wall_ms:.1f}%), {sum(e.count for e in events)} device kernels "
+        f"({count('radixsort', 'radix_sort')} radix-sort and {count('searchsorted')} "
+        "searchsorted launches)")
     for e in sorted(events, key=dev_us, reverse=True)[:top]:
         log(f"profile:   {dev_us(e) / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:90]}")
 
@@ -476,7 +555,6 @@ def main() -> int:
     from gaussreg_tpu_torch.gs import fine_registration as fine_mod
     from gaussreg_tpu_torch.gs.fusion import transform_gaussians
     from gaussreg_tpu_torch.gs.ply import load_gaussians, save_gaussians
-    from gaussreg_tpu_torch.gs.rasterizer import accumulate as accumulate_mod
     from gaussreg_tpu_torch.gs.rasterizer import kernels as raster_mod
     from gaussreg_tpu_torch.models import kpconv as kpconv_mod
     from gaussreg_tpu_torch.models import matching as matching_mod
@@ -680,10 +758,14 @@ def main() -> int:
     # 8. K4-K6 against their plain versions on one full-width step's calls
     with Capture(raster_mod, "rasterize_forward") as c4, \
             Capture(raster_mod, "rasterize_backward") as c5, \
-            Capture(raster_mod, "segment_accumulate") as c6:
+            Capture(raster_mod, "accumulate_pairs") as c6, \
+            Capture(raster_mod, "slot_positions") as c_tab:
         fine_mod.fine_register(ref_g, src_g, torch.eye(4), cams, num_steps=1)
     torch.cuda.synchronize()
     nv = len(cams)  # the step's renders are the last calls; the probes come before
+    if len(c_tab.calls) != nv:
+        raise AssertionError(f"{len(c_tab.calls)} pair tables built for one step of {nv} "
+                             "views: one per backward, none for the probes and targets")
     for name, calls, kernel, plain, compare, library, cost, src, replaces in (
         ("rasterize_forward", c4.calls[-nv:], raster_mod.rasterize_forward,
          raster_mod.rasterize_forward_plain, compare_forward, None, forward_cost,
@@ -691,30 +773,21 @@ def main() -> int:
         ("rasterize_backward", c5.calls[-nv:], raster_mod.rasterize_backward,
          raster_mod.rasterize_backward_plain, compare_backward, None, backward_cost,
          "gaussreg_tpu_torch/csrc/rasterize_bwd.cu", "gaussreg_tpu/gs/rasterizer/kernels.py:442"),
-        ("segment_accumulate", c6.calls[-nv:], accumulate_mod.segment_accumulate,
-         accumulate_mod.segment_accumulate_plain, compare_accumulate, accumulate_index_add,
-         accumulate_cost, "gaussreg_tpu_torch/csrc/segment_accumulate.cu",
+        ("segment_accumulate", None, None, None, None, None, None,
+         "gaussreg_tpu_torch/csrc/segment_accumulate.cu",
          "gaussreg_tpu/gs/rasterizer/accumulate.py:131"),
     ):
         with torch.no_grad():  # the captured gdata is a leaf of the step's graph
-            rows, tot = measure(name, calls, kernel, plain, compare, library, cost, "f32",
-                                plain_reps=2)
+            if name == "segment_accumulate":
+                rows, tot = measure_accumulate(c5.calls[-nv:], c6.calls[-nv:], c_tab.calls)
+            else:
+                rows, tot = measure(name, calls, kernel, plain, compare, library, cost, "f32",
+                                    plain_reps=2)
         for row in rows:
             log(row)
         b_ms, b_by = bound(tot["bytes"], tot["ops"], "f32")
-        if name == "segment_accumulate":
-            # `ms` times the wrapper (sort, run bounds, kernel), the function
-            # that the plain version and index_add_ compute; the bound is the
-            # segment sum's alone, so the launch alone is timed beside it
-            launch_ms = 0.0
-            for (rows_, gid_, num_out_), _ in calls:
-                runs = accumulate_mod.sorted_runs(gid_, num_out_)
-                launch_ms += cuda_ms(
-                    lambda: accumulate_mod.accumulate_runs(rows_, *runs, num_out_))
-            log(f"{name}: the kernel launch alone (ids sorted beforehand) {launch_ms:.3f} ms "
-                f"of the wrapper's {tot['ms']:.3f} ms")
         lib_txt = "none" if tot["library_ms"] is None else f"{tot['library_ms']:.3f} ms"
-        log(f"{name}: {len(calls)} calls per step, kernel {tot['ms']:.3f} ms, plain "
+        log(f"{name}: {nv} calls per step, kernel {tot['ms']:.3f} ms, plain "
             f"{tot['plain_ms']:.3f} ms, library {lib_txt}, bound {b_ms:.3f} ms ({b_by})")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -723,7 +796,12 @@ def main() -> int:
             "bound_by": b_by, "library_ms": tot["library_ms"],
         })
         if name == "segment_accumulate":
-            kernels[-1]["launch_ms"] = launch_ms
+            # `ms` is what the path pays: the table build plus the launch
+            kernels[-1]["launch_ms"] = tot["launch_ms"]
+            kernels[-1]["table_ms"] = tot["table_ms"]
+            log(f"{name}: per step the table {tot['table_ms']:.3f} ms + the accumulation "
+                f"{tot['launch_ms']:.3f} ms; index_add_ {tot['library_ms']:.3f} ms")
+    profile_backward(src_g, cams)
     profile_fine_steps(ref_g, src_g, cams)
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -18,6 +18,13 @@ no scatter (port of gaussreg_tpu/gs/rasterizer/binning.py).
   block may be shared with the neighbouring tile, and the kernels mask
   foreign rows.
 - Nothing here is differentiated: callers pass detached tensors.
+- The sort's index `order` and each row's gaussian `row_gid` are kept. The
+  backward of a differentiated render inverts `order` into a per-gaussian
+  table (`slot_positions`): `slot_pos[r, s]` is the sorted position of row
+  r's slot s. Slots run row-major over the bbox, so a row's tiles, and with
+  them its sorted positions, rise with the slot index: the accumulation
+  (K6, accumulate.py) reads each gaussian's pairs in order from the table,
+  with no second sort.
 """
 
 from __future__ import annotations
@@ -47,6 +54,9 @@ class TileBinning(NamedTuple):
     num_live: torch.Tensor  # () int32, gaussians alive after saturation cull
     live_overflow: torch.Tensor  # () int32, live gaussians beyond live_cap
     # (their pairs are dropped; size live_cap from a probe's num_live)
+    order: torch.Tensor  # (n_rows * mt,) int64 the sort's index: the flat
+    # slot r * mt + s of each sorted position
+    row_gid: torch.Tensor  # (n_rows,) int32 gaussian id per row
 
 
 def _tile_bbox(mx, my, hx, hy, alive, tile_w, tile_h, ntx, nty):
@@ -82,6 +92,14 @@ def _saturation_lookup(sat_depth, sat_margin, ntx, nty, x0, y0, bw, bh):
     rows = stack[(y0 * ntx + x0).long()]  # (G, 16) one row per gaussian
     look = torch.gather(rows, 1, lvl.long()[:, None])[:, 0]
     return look, size <= MAX_POOL_LEVELS
+
+
+def slot_positions(order: torch.Tensor, n_rows: int, mt: int) -> torch.Tensor:
+    """(n_rows, mt) int32 sorted position of every flat slot r * mt + s:
+    the inverse of the sort's permutation `order`, a scatter with unique
+    indices (deterministic). Invalid slots sort past num_pairs."""
+    pos = torch.arange(n_rows * mt, dtype=torch.int32, device=order.device)
+    return torch.empty_like(pos).scatter_(0, order, pos).reshape(n_rows, mt)
 
 
 def bin_gaussians(
@@ -242,4 +260,6 @@ def bin_gaussians(
         overflow_cap=overflow_cap,
         num_live=num_live,
         live_overflow=live_overflow,
+        order=order,
+        row_gid=gids,
     )

@@ -3,9 +3,10 @@
 
 `rasterize_gaussians` is a torch.autograd.Function. For CUDA tensors its
 forward launches csrc/rasterize_fwd.cu and its backward launches
-csrc/rasterize_bwd.cu followed by the segment accumulation of
-accumulate.py (K6); for CPU tensors both run the plain PyTorch versions in
-this module (`rasterize_forward_plain`, `rasterize_backward_plain`).
+csrc/rasterize_bwd.cu followed by the per-gaussian accumulation of
+accumulate.py (K6); for CPU tensors they run the plain PyTorch versions
+(`rasterize_forward_plain`, `rasterize_backward_plain`,
+`accumulate_pairs_plain`).
 
 The function (shared by kernel and plain version):
 
@@ -28,7 +29,10 @@ The function (shared by kernel and plain version):
   with the suffix colour sums as <d, final> - <d, prefix>, and writes one
   private 16-float gradient row per (tile, pair) into the compacted range
   [offs[t], offs[t+1]) of its output. The rows are added per gaussian by
-  `segment_accumulate` in a fixed order, so two runs give the same bits.
+  `accumulate_pairs`, which reads each gaussian's pairs in a fixed order
+  from a pair table the backward builds from the binning's sort
+  (`binning.slot_positions` of `order`, and `row_gid`), so two runs give
+  the same bits.
 
 `bwd_capacity_blocks` caps the compacted buffer. The default
 (num_blocks + num_tiles) can never overflow; tiles past a tighter cap lose
@@ -51,7 +55,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from gaussreg_tpu_torch.gs.rasterizer.accumulate import segment_accumulate
+from gaussreg_tpu_torch.gs.rasterizer.accumulate import accumulate_pairs
+from gaussreg_tpu_torch.gs.rasterizer.binning import TileBinning, slot_positions
 from gaussreg_tpu_torch.ops import _cuda
 
 ALPHA_MIN = 1.0 / 255.0
@@ -300,7 +305,8 @@ def compacted_offsets(kend: torch.Tensor, bwd_blocks: int) -> torch.Tensor:
 def compacted_gids(sorted_gid, starts, offs, bwd_blocks: int, drop_id: int):
     """Gaussian id of every row of the compacted gradient buffer,
     (bwd_blocks * CHUNK,) int32: compacted block -> original block -> ids.
-    Rows of blocks past the compacted end get `drop_id`."""
+    Rows of blocks past the compacted end get `drop_id`. The oracle of
+    `accumulate_pairs` (with `segment_accumulate_plain`); no path calls it."""
     nblk = sorted_gid.shape[0] // CHUNK
     blocks = torch.arange(bwd_blocks, dtype=torch.int32, device=offs.device)
     # tile of each compacted block: number of tile ends at or before it
@@ -315,20 +321,20 @@ def compacted_gids(sorted_gid, starts, offs, bwd_blocks: int, drop_id: int):
 
 class _RasterizeGaussians(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, gdata, sorted_gid, starts, height, width, tile_h, tile_w,
-                bwd_capacity_blocks):
+    def forward(ctx, gdata, sorted_gid, starts, order, row_gid, height, width,
+                tile_h, tile_w, bwd_capacity_blocks):
         gdata = gdata.contiguous()
         planes, kend = rasterize_forward(
             gdata, sorted_gid, starts, height, width, tile_h, tile_w
         )
-        ctx.save_for_backward(gdata, sorted_gid, starts, kend, planes)
+        ctx.save_for_backward(gdata, sorted_gid, starts, kend, planes, order, row_gid)
         ctx.geometry = (height, width, tile_h, tile_w, bwd_capacity_blocks)
         ctx.mark_non_differentiable(kend)
         return planes[:3].permute(1, 2, 0), planes[3], planes[4], kend
 
     @staticmethod
     def backward(ctx, d_rgb, d_depth, d_t, _d_kend):
-        gdata, sorted_gid, starts, kend, planes = ctx.saved_tensors
+        gdata, sorted_gid, starts, kend, planes, order, row_gid = ctx.saved_tensors
         height, width, tile_h, tile_w, bwd_blocks = ctx.geometry
         num_tiles = starts.shape[0] - 1
         if bwd_blocks is None:
@@ -342,20 +348,20 @@ class _RasterizeGaussians(torch.autograd.Function):
             gdata, sorted_gid, starts, offs, ct_planes.contiguous(), bwd_blocks,
             height, width, tile_h, tile_w,
         )
-        # rows of blocks past the compacted end are dropped (id == num_out);
-        # foreign rows of duplicated boundary blocks are exact zeros
-        g1 = gdata.shape[0]
-        gid = compacted_gids(sorted_gid, starts, offs, bwd_blocks, drop_id=g1)
-        d_gdata = segment_accumulate(grad_rows, gid, g1)
-        # the sentinel row's cotangent is mathematically zero (alpha == 0)
-        d_gdata[g1 - 1] = 0.0
-        return d_gdata, None, None, None, None, None, None, None
+        # the pair table, built here: only a differentiated render pays for
+        # it. The sentinel row G is in no row of the table: its cotangent
+        # stays zero (alpha == 0 there)
+        n_rows = row_gid.shape[0]
+        slot_pos = slot_positions(order, n_rows, order.shape[0] // max(n_rows, 1))
+        d_gdata = accumulate_pairs(
+            grad_rows, slot_pos, row_gid, starts, offs, sorted_gid.shape[0], gdata.shape[0]
+        )
+        return d_gdata, None, None, None, None, None, None, None, None, None
 
 
 def rasterize_gaussians(
     gdata: torch.Tensor,
-    sorted_gid: torch.Tensor,
-    starts: torch.Tensor,
+    binning: TileBinning,
     height: int,
     width: int,
     tile_h: int = 32,
@@ -368,9 +374,11 @@ def rasterize_gaussians(
     Args:
         gdata: (G + 1, NCHAN) per-gaussian channels (module docstring
             layout); row G is the sentinel (a0 = -1e30).
-        sorted_gid: (cap,) int32 pair ids in (tile, depth) order, cap a
-            multiple of CHUNK.
-        starts: (num_tiles + 1,) int32 element offsets of tile segments.
+        binning: `bin_gaussians`' output: sorted_gid ((cap,) int32 pair ids
+            in (tile, depth) order, cap a multiple of CHUNK), starts
+            ((num_tiles + 1,) int32 element offsets of tile segments), and
+            the sort's `order` and `row_gid`, from which the backward builds
+            its pair table.
         bwd_capacity_blocks: cap on the compacted backward buffer; None =
             num_blocks + num_tiles (never overflows).
 
@@ -379,10 +387,13 @@ def rasterize_gaussians(
         kend (num_tiles,) int32: per-tile chunks composited before
         saturation. sum(kend) is the backward's block demand.
     """
-    if sorted_gid.shape[0] % CHUNK:
-        raise ValueError(f"sorted_gid length {sorted_gid.shape[0]} is not a multiple of {CHUNK}")
+    if binning.sorted_gid.shape[0] % CHUNK:
+        raise ValueError(
+            f"sorted_gid length {binning.sorted_gid.shape[0]} is not a multiple of {CHUNK}"
+        )
     return _RasterizeGaussians.apply(
-        gdata, sorted_gid, starts, height, width, tile_h, tile_w, bwd_capacity_blocks
+        gdata, binning.sorted_gid, binning.starts, binning.order, binning.row_gid, height,
+        width, tile_h, tile_w, bwd_capacity_blocks,
     )
 
 

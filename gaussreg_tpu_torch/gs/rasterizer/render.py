@@ -4,7 +4,8 @@ gaussreg_tpu/gs/rasterizer/render.py).
 render() = project (plain tensor code, autograd) -> sort-based binning (one
 sort, detached; binning.py) -> rasterize_gaussians (autograd.Function in
 kernels.py: tile compositing forward; backward writing private per-pair
-gradient rows + segment accumulation per gaussian).
+gradient rows + accumulation per gaussian through a pair table inverted
+from the binning's sort).
 
 The tile path is the default on every device: CUDA tensors take the CUDA
 kernels, CPU tensors their plain versions. `dense_reference=True` selects
@@ -79,8 +80,7 @@ def _bin_and_rasterize(
     gdata = torch.cat([gdata, sentinel], dim=0)
 
     rgb, depth, t, kend = kernels.rasterize_gaussians(
-        gdata, binning.sorted_gid, binning.starts, hp, wp, tile_h, tile_w,
-        bwd_capacity_blocks,
+        gdata, binning, hp, wp, tile_h, tile_w, bwd_capacity_blocks
     )
 
     # per-tile saturation depth for the NEXT render of ~this scene: the

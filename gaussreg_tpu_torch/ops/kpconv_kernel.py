@@ -30,6 +30,7 @@ KERNEL = _cuda.register(
 )
 
 MAX_KERNEL_POINTS = 16
+MAX_NEIGHBORS = 44  # the kernel's shared memory at K = 16 (csrc/kpconv_fused.cu)
 
 
 def reference_apply(nf: torch.Tensor, infl: torch.Tensor, weights: torch.Tensor):
@@ -41,6 +42,12 @@ def reference_apply(nf: torch.Tensor, infl: torch.Tensor, weights: torch.Tensor)
     lead = weighted.shape[:-2]
     out = weighted.reshape(-1, w.shape[0] * w.shape[1]) @ w.reshape(-1, w.shape[2])
     return out.reshape(lead + (w.shape[2],))
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous, at a 16-byte aligned address (the kernel's copies)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def kpconv_fused_apply(nf: torch.Tensor, infl: torch.Tensor, weights: torch.Tensor):
@@ -60,18 +67,22 @@ def kpconv_fused_apply(nf: torch.Tensor, infl: torch.Tensor, weights: torch.Tens
         )
     if nf.device.type == "cpu":
         return reference_apply(nf, infl, weights)
-    if k > MAX_KERNEL_POINTS:
-        raise ValueError(f"kpconv_fused_apply: needs K <= {MAX_KERNEL_POINTS}, got K={k}")
-    # the kernel's MMA tiles need C and D in multiples of 16: zero channels
-    # (features and weights) and zero output columns are exact padding
-    cp, dp = -(-c // 16) * 16, -(-d // 16) * 16
+    if k > MAX_KERNEL_POINTS or h > MAX_NEIGHBORS:
+        raise ValueError(f"kpconv_fused_apply: needs K <= {MAX_KERNEL_POINTS} and H <= "
+                         f"{MAX_NEIGHBORS}, got K={k}, H={h}")
+    # the kernel copies nf in 8- or 16-byte pieces and W in 16-byte pieces:
+    # C a multiple of 4 (the backbone's widths are; others are padded to 8)
+    # and D a multiple of 8. Zero channels (features and weights) and zero
+    # output columns are exact padding.
+    cp = c if c % 4 == 0 else -(-c // 8) * 8
+    dp = -(-d // 8) * 8
     nf2 = nf.reshape(b * m, h, c)
     w2 = weights.to(torch.bfloat16)
     if (cp, dp) != (c, d):
         nf2 = F.pad(nf2, (0, cp - c))
         w2 = F.pad(w2, (0, dp - d, 0, cp - c))
-    nf2, w2 = nf2.contiguous(), w2.contiguous()
-    infl2 = infl.reshape(b * m, h, k).contiguous()
+    nf2, w2 = _aligned(nf2), _aligned(w2)
+    infl2 = _aligned(infl.reshape(b * m, h, k))
     _cuda.check_cuda_tensor(nf2, "nf", torch.bfloat16, 3)
     _cuda.check_cuda_tensor(infl2, "infl", torch.bfloat16, 3)
     _cuda.check_cuda_tensor(w2, "weights", torch.bfloat16, 3)

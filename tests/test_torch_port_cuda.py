@@ -6,8 +6,8 @@ where there is no CUDA card. On a machine with one:
     python -m pytest -q -m cuda tests/test_torch_port_cuda.py
 
 K1 and K3 must equal their plain versions index for index and value for
-value; K2 must lie within 4e-3 of the plain output's max magnitude (one
-bf16 rounding step of a weighted sum, 2^-8 relative).
+value, K6 bit for bit; K2 must lie within 4e-3 of the plain output's max
+magnitude (one bf16 rounding step of a weighted sum, 2^-8 relative).
 """
 
 import numpy as np
@@ -60,6 +60,31 @@ def test_kpconv_kernel_matches_plain(cuda, c, d):
     assert (out - ref).abs().max().item() <= 4e-3 * ref.abs().max().item()
 
 
+@pytest.mark.parametrize(
+    "rows,h,k",
+    [(50, 35, 15), (1000, 17, 15), (64 * 5 + 7, 1, 15), (130, 35, 1), (3, 17, 1), (777, 28, 16),
+     (300, 44, 16)],
+)
+def test_kpconv_kernel_shapes(cuda, rows, h, k):
+    """Neighbour counts that are not a multiple of 16 (1, 17, 35) and the
+    largest the kernel takes (44, with sixteen kernel points), one or
+    sixteen kernel points, fewer than 64 rows and row counts that are not a
+    multiple of 64, at a narrow (C = 4) and a wide (C = D = 256) layer."""
+    from gaussreg_tpu_torch.ops import kpconv_kernel as kk
+
+    for c, d in ((4, 64), (256, 256)):
+        gen = torch.Generator(device=cuda).manual_seed(rows + h + k + c)
+        nf = torch.randn(1, rows, h, c, device=cuda, generator=gen).to(torch.bfloat16)
+        infl = torch.rand(1, rows, h, k, device=cuda, generator=gen).to(torch.bfloat16)
+        w = torch.randn(k, c, d, device=cuda, generator=gen)
+        before = kk.KERNEL.launches
+        out = kk.kpconv_fused_apply(nf, infl, w)
+        torch.cuda.synchronize()
+        assert kk.KERNEL.launches == before + 1
+        ref = kk.reference_apply(nf, infl, w)
+        assert (out - ref).abs().max().item() <= 4e-3 * ref.abs().max().item()
+
+
 @pytest.mark.parametrize("w,k", [(128, 3), (16, 3), (1000, 35)])
 def test_select_min_k_kernel_matches_plain(cuda, w, k):
     from gaussreg_tpu_torch.ops import select_k as sk
@@ -89,13 +114,14 @@ def test_wrappers_reject_bad_input(cuda):
 # package's own kernel-against-reference test), kend equal: both versions
 # round the exponent alike, so they differ only by the order of the colour
 # sums and by exp's last bit. K5: rows within 2e-3 of each channel's max
-# (sums over 1024 pixels in another order). K6: within 2e-5 of the rows'
-# scale (the same additions in the same order; exact in practice).
+# (sums over 1024 pixels in another order). K6: equal bit for bit (the same
+# additions in the same order).
 
 
 def _pairs_scene(cuda, n, seed, width, height, tile=32, opacity_boost=1.0, z_front=False):
-    """A projected scene's rasterizer inputs on the card: gdata, sorted_gid,
-    starts (through the port's own projection and binning)."""
+    """A projected scene's rasterizer inputs on the card: gdata and the
+    binning (sorted_gid, starts, the sort's order and row_gid), through the
+    port's own projection and binning."""
     from gaussreg_tpu_torch.gs.rasterizer import kernels
     from gaussreg_tpu_torch.gs.rasterizer.binning import bin_gaussians
     from gaussreg_tpu_torch.gs.rasterizer.camera import look_at_camera
@@ -122,7 +148,7 @@ def _pairs_scene(cuda, n, seed, width, height, tile=32, opacity_boost=1.0, z_fro
     gdata = torch.cat([coeffs, z2, proj.colors, proj.depths[:, None], z2, z2], dim=1)
     sentinel = torch.zeros((1, 16), device=cuda)
     sentinel[0, 0] = -1e30
-    return torch.cat([gdata, sentinel]).contiguous(), b.sorted_gid, b.starts
+    return torch.cat([gdata, sentinel]).contiguous(), b
 
 
 def _check_forward(gdata, gid, starts, height, width, tile):
@@ -169,7 +195,8 @@ def _check_backward(gdata, gid, starts, planes, kend, height, width, tile, bwd_b
 def test_rasterize_kernels_match_plain(cuda, n, width, height, tile, boost, front):
     from gaussreg_tpu_torch.gs.rasterizer import kernels
 
-    gdata, gid, starts = _pairs_scene(cuda, n, n, width, height, tile, boost, front)
+    gdata, b = _pairs_scene(cuda, n, n, width, height, tile, boost, front)
+    gid, starts = b.sorted_gid, b.starts
     planes, kend = _check_forward(gdata, gid, starts, height, width, tile)
     if front:
         assert (kend < torch.div(starts[1:] - starts[:-1] + 127, 128, rounding_mode="floor")).any()
@@ -209,11 +236,12 @@ def test_rasterize_gradients_match_plain_path(cuda):
     same autograd.Function on the CPU (the plain versions)."""
     from gaussreg_tpu_torch.gs.rasterizer import kernels
 
-    gdata, gid, starts = _pairs_scene(cuda, 500, 3, 128, 64)
+    gdata, b = _pairs_scene(cuda, 500, 3, 128, 64)
     outs = []
     for dev in ("cuda", "cpu"):
         x = gdata.detach().to(dev).clone().requires_grad_(True)
-        rgb, depth, t, _ = kernels.rasterize_gaussians(x, gid.to(dev), starts.to(dev), 64, 128)
+        rgb, depth, t, _ = kernels.rasterize_gaussians(
+            x, type(b)(*(f.to(dev) for f in b)), 64, 128)
         w = torch.linspace(0.5, 1.5, rgb.numel(), device=dev).reshape(rgb.shape)
         ((rgb * w).sum() + 0.3 * t.sum() + 0.05 * depth.sum()).backward()
         outs.append(x.grad.cpu())
@@ -221,24 +249,45 @@ def test_rasterize_gradients_match_plain_path(cuda):
     assert ((outs[0] - outs[1]).abs() / scale).max().item() <= 2e-3
 
 
-@pytest.mark.parametrize("case", ["random", "one_gaussian", "dropped"])
-def test_segment_accumulate_kernel_matches_plain(cuda, case):
+@pytest.mark.parametrize(
+    "n,width,height,tile,boost,front",
+    [
+        (300, 128, 64, 32, 1.0, False),
+        (4000, 128, 64, 32, 4.0, True),
+        (600, 64, 64, 16, 1.0, False),
+    ],
+)
+def test_segment_accumulate_kernel_matches_plain(cuda, n, width, height, tile, boost, front):
+    """K6 on the three scenes of test_rasterize_kernels_match_plain, with the
+    full backward buffer and one that clips: equal bit for bit to its plain
+    version (the same additions in the same order), to index_add_ on the
+    compacted ids on the CPU (sequential, in row order), and to itself on a
+    second launch."""
     from gaussreg_tpu_torch.gs.rasterizer import accumulate as acc
+    from gaussreg_tpu_torch.gs.rasterizer import kernels
+    from gaussreg_tpu_torch.gs.rasterizer.binning import slot_positions
 
-    gen = torch.Generator(device=cuda).manual_seed(1)
-    r, num_out = 128 * 37, 1001
-    rows = torch.randn(r, 16, device=cuda, generator=gen)
-    gid = torch.randint(0, num_out, (r,), device=cuda, generator=gen, dtype=torch.int32)
-    if case == "one_gaussian":
-        gid[:] = 7  # every row on one gaussian: one long run
-    elif case == "dropped":
-        gid[::3] = num_out  # ids past the table are dropped
-    before = acc.KERNEL.launches
-    out_k = acc.segment_accumulate(rows, gid, num_out)
-    torch.cuda.synchronize()
-    assert acc.KERNEL.launches == before + 1
-    out_p = acc.segment_accumulate_plain(rows.cpu(), gid.cpu(), num_out)  # sequential adds
-    assert (out_k.cpu() - out_p).abs().max().item() <= 2e-5 * rows.abs().max().item() * (
-        r if case == "one_gaussian" else 1
-    )
-    assert torch.equal(out_k, acc.segment_accumulate(rows, gid, num_out))  # repeats exactly
+    gdata, b = _pairs_scene(cuda, n, n, width, height, tile, boost, front)
+    table = slot_positions(b.order, b.row_gid.shape[0], 32)
+    planes, kend = kernels.rasterize_forward(gdata, b.sorted_gid, b.starts, height, width,
+                                             tile, tile)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    d = torch.randn(5, height, width, device=cuda, generator=gen)
+    ct = torch.cat([d, planes[4:5], (d[:4] * planes[:4]).sum(0)[None]]).contiguous()
+    cap, g1 = b.sorted_gid.shape[0], gdata.shape[0]
+    full = b.sorted_gid.shape[0] // kernels.CHUNK + kend.shape[0]
+    for bwd_blocks in (full, max(1, int(kend.sum()) // 2)):
+        offs = kernels.compacted_offsets(kend, bwd_blocks)
+        rows = kernels.rasterize_backward(gdata, b.sorted_gid, b.starts, offs, ct, bwd_blocks,
+                                          height, width, tile, tile)
+        args = (rows, table, b.row_gid, b.starts, offs, cap, g1)
+        before = acc.KERNEL.launches
+        out_k = acc.accumulate_pairs(*args)
+        torch.cuda.synchronize()
+        assert acc.KERNEL.launches == before + 1
+        assert torch.equal(out_k, acc.accumulate_pairs_plain(*args))
+        ids = kernels.compacted_gids(b.sorted_gid, b.starts, offs, bwd_blocks, drop_id=g1)
+        oracle = acc.segment_accumulate_plain(rows.cpu(), ids.cpu(), g1)
+        oracle[g1 - 1] = 0.0
+        assert torch.equal(out_k.cpu(), oracle)
+        assert torch.equal(out_k, acc.accumulate_pairs(*args))  # repeats exactly

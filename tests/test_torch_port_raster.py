@@ -23,7 +23,7 @@ from gaussreg_tpu.gs.rasterizer.render import render as jrender
 from gaussreg_tpu_torch.gs.rasterizer import binning as tbinning
 from gaussreg_tpu_torch.gs.rasterizer import kernels as tkernels
 from gaussreg_tpu_torch.gs.rasterizer.accumulate import (
-    segment_accumulate,
+    accumulate_pairs,
     segment_accumulate_plain,
 )
 from gaussreg_tpu_torch.gs.rasterizer.camera import look_at_camera as tlook_at
@@ -214,9 +214,8 @@ def test_forward_plain_matches_pallas(scene):
     jcam, _ = _cameras(width, height)
     gdata, gid, starts = _rasterizer_inputs(args, jcam, width, height, 32)
     rgb_j, depth_j, t_j, kend_j = jkernels.rasterize_gaussians(gdata, gid, starts, height, width)
-    rgb_t, depth_t, t_t, kend_t = tkernels.rasterize_gaussians(
-        *_t([gdata, gid, starts]), height, width
-    )
+    planes, kend_t = tkernels.rasterize_forward(*_t([gdata, gid, starts]), height, width, 32, 32)
+    rgb_t, depth_t, t_t = planes[:3].permute(1, 2, 0), planes[3], planes[4]
     np.testing.assert_array_equal(kend_t.numpy(), np.asarray(kend_j))
     if scene == "saturating":
         nch = -(-np.diff(np.asarray(starts)) // 128)
@@ -347,11 +346,13 @@ def test_saturation_culled_render():
 
 @pytest.mark.parametrize("case", ["random", "one_gaussian", "dropped"])
 def test_segment_accumulate_plain(case):
-    """K6's plain version against the interpreted Pallas kernel and
-    np.add.at. Against np.add.at (a sequential scatter-add): within 2e-5 of
-    the rows' scale times the longest run (index_add_ on the CPU adds in row
-    order; equal in practice). Against the Pallas kernel, whose one-hot
-    product adds each 128-row block at once: the same bound."""
+    """The function of K6 on (rows, ids), the oracle of the port's
+    accumulation (`segment_accumulate_plain`), against the interpreted
+    Pallas kernel and np.add.at. Against np.add.at (a sequential
+    scatter-add): within 2e-5 of the rows' scale times the longest run
+    (index_add_ on the CPU adds in row order; equal in practice). Against the
+    Pallas kernel, whose one-hot product adds each 128-row block at once:
+    the same bound."""
     rng = np.random.default_rng(4)
     r, num_out = 128 * 12, 301
     rows = rng.normal(size=(r, 16)).astype(np.float32)
@@ -363,8 +364,12 @@ def test_segment_accumulate_plain(case):
     want = np.zeros((num_out + 1, 16), np.float32)
     np.add.at(want, np.minimum(gid, num_out), rows)
     want = want[:num_out]
-    out = segment_accumulate(torch.from_numpy(rows), torch.from_numpy(gid), num_out)
-    assert torch.equal(out, segment_accumulate_plain(torch.from_numpy(rows), torch.from_numpy(gid), num_out))
+    out = segment_accumulate_plain(torch.from_numpy(rows), torch.from_numpy(gid), num_out)
+    seq = torch.zeros((num_out, 16))
+    for i in range(r):  # a Python loop: index_add_ adds in row order
+        if gid[i] < num_out:
+            seq[gid[i]] += torch.from_numpy(rows[i])
+    assert torch.equal(out, seq)
     pallas = np.asarray(jsegment_accumulate(jnp.asarray(rows), jnp.asarray(gid), num_out, interpret=True))
     longest = np.bincount(gid).max()
     tol = 2e-5 * np.abs(rows).max() * longest
@@ -375,16 +380,21 @@ def test_segment_accumulate_plain(case):
 def test_rasterizer_wrappers_reject_bad_input():
     gdata = torch.zeros((3, 16))
     gdata[2, 0] = -1e30
-    gid = torch.full((128,), 2, dtype=torch.int32)
-    starts = torch.zeros(3, dtype=torch.int32)
+    # two culled gaussians on two tiles: 128 sentinel pairs, no tile pair
+    b = tbinning.bin_gaussians(torch.zeros((2, 2)), torch.zeros(2), torch.ones(2), 64, 32)
+    assert b.sorted_gid.tolist() == [2] * 128 and b.starts.tolist() == [0, 0, 0]
     with pytest.raises(ValueError):  # the image is not a multiple of the tile
-        tkernels.rasterize_gaussians(gdata, gid, starts, 30, 64)
+        tkernels.rasterize_gaussians(gdata, b, 30, 64)
     with pytest.raises(ValueError):  # the pair list is not a multiple of 128
-        tkernels.rasterize_gaussians(gdata, gid[:100], starts, 32, 64)
-    with pytest.raises(ValueError):
-        segment_accumulate(torch.zeros((4, 8)), torch.zeros(4, dtype=torch.int32), 3)
+        tkernels.rasterize_gaussians(gdata, b._replace(sorted_gid=b.sorted_gid[:100]), 32, 64)
+    with pytest.raises(ValueError):  # 8-float rows
+        accumulate_pairs(torch.zeros((4, 8)), torch.zeros((1, 4), dtype=torch.int32),
+                         torch.zeros(1, dtype=torch.int32), b.starts, b.starts, 128, 3)
     with pytest.raises(ValueError):
         tbinning.bin_gaussians(torch.zeros((2, 2)), torch.ones(2), torch.ones(2), 64, 32, live_cap=1)
-    # an empty image: T = 1, colour 0, no chunk composited
-    rgb, depth, t, kend = tkernels.rasterize_gaussians(gdata, gid, starts, 32, 64)
+    # an empty image: T = 1, colour 0, no chunk composited, zero gradient
+    x = gdata.clone().requires_grad_(True)
+    rgb, depth, t, kend = tkernels.rasterize_gaussians(x, b, 32, 64)
     assert kend.tolist() == [0, 0] and float(t.min()) == 1.0 and float(rgb.abs().max()) == 0.0
+    (rgb.sum() + t.sum()).backward()
+    assert torch.equal(x.grad, torch.zeros_like(gdata))
