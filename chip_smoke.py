@@ -46,10 +46,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    back, finite, with between N and 2N gaussians.
 8. rasterizer kernels: the K4/K5/K6 calls of one full-width step (4 views)
    are replayed on their captured inputs, held against their plain PyTorch
-   versions (limits at `compare_forward`, `compare_backward`; K6 equal bit
-   for bit to its plain version and to `index_add_` on the compacted ids on
-   the host, which adds in row order) and timed beside them and beside
-   their bounds (K4 and K5 over the tiles' own pairs of the chunks walked).
+   versions (limits at `compare_forward`, `compare_backward`, the forward's
+   chunk-start state included; two K5 launches equal bit for bit; K6 equal
+   bit for bit to its plain version and to `index_add_` on the compacted
+   ids on the host, which adds in row order) and timed beside them and
+   beside their bounds (K4 and K5 over the tiles' own pairs of the chunks
+   walked) and, for K4 and K5 on their log lines, the critical-path bound
+   of a design that keeps a tile on one SM (the heaviest tile's operations
+   at 1/132 of the f32 peak; not in the kernels line, which holds measured
+   numbers and `bound_ms`). Per view it prints walked pairs per tile and kend (the
+   imbalance) and the chunk-start state's bytes; after phase 6
+   torch.cuda.max_memory_allocated().
    K6 is timed as the path pays for it: the pair table that the backward
    of each differentiated render builds from the binning's sort, plus the
    accumulation, beside `index_add_` on the card (K4 and K5 have no single
@@ -135,7 +142,8 @@ class Capture:
 
 def measure(name, calls, kernel, plain, compare, library, cost, kind, plain_reps: int = 5):
     """Replay each captured call: hold the kernel against its plain version
-    (`compare` raises on a mismatch and returns the max abs error), time
+    (`compare(kernel_out, plain_out, args)` raises on a mismatch and
+    returns the max abs error), time
     kernel, plain version and library call (None: no single PyTorch call
     computes the function), and bound the call's work.
     Returns the per-call lines and the totals over the calls."""
@@ -143,7 +151,7 @@ def measure(name, calls, kernel, plain, compare, library, cost, kind, plain_reps
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0 if library else None, err=0.0,
                bytes=0.0, ops=0.0)
     for args, kw in calls:
-        err = compare(kernel(*args, **kw), plain(*args, **kw))
+        err = compare(kernel(*args, **kw), plain(*args, **kw), args)
         t_k = cuda_ms(lambda: kernel(*args, **kw))
         t_p = cuda_ms(lambda: plain(*args, **kw), reps=plain_reps)
         t_l = cuda_ms(library(*args, **kw)) if library else None
@@ -160,7 +168,7 @@ def measure(name, calls, kernel, plain, compare, library, cost, kind, plain_reps
     return rows, tot
 
 
-def exact(a, b):
+def exact(a, b, _args):
     """K1/K3: values and indices must be equal."""
     import torch
 
@@ -171,7 +179,7 @@ def exact(a, b):
     return 0.0
 
 
-def within_bf16_step(a, b):
+def within_bf16_step(a, b, _args):
     """K2: within 4e-3 of the plain output's max (one bf16 rounding step)."""
     err = (a - b).abs().max().item()
     scale = b.abs().max().item()
@@ -224,28 +232,33 @@ def select_cost(x, k):
 # (csrc/rasterize_fwd.cu, csrc/rasterize_bwd.cu): the exponent 10, min, exp,
 # the band test and cap 2, the weight 1, four multiply-adds 8, the
 # transmittance 2 -> 25 forward; the backward recomputes the first 14 and
-# adds the colour product 7, the prefix 2, d_alpha 6, the band test and
-# d_power 2, the weight and 1 - alpha 2, nine products, the transmittance 1
-# and the ten pixel sums 10 -> 53.
+# adds the colour product 7, the prefix 2, d_alpha 5 (one division), the
+# band test and d_power 2, the weight and 1 - alpha 2, nine products, the
+# transmittance 1 and the ten pixel sums 10 -> 52.
 FINE_GAUSSIANS, FINE_VIEWS, FINE_STEPS, FINE_TILE = 200_000, 4, 100, 32
 K4_OPS_PER_PAIR_PIXEL = 25.0
-K5_OPS_PER_PAIR_PIXEL = 53.0
+K5_OPS_PER_PAIR_PIXEL = 52.0
+NUM_SMS = 132  # H100 SXM; the critical-path bound gives one tile one SM's share
 MAX_FLIPPED_PIXELS = 16
 
 
-def compare_forward(a, b):
+def compare_forward(a, b, args):
     """K4. rgb and T within 5e-4 and depth within 5e-3 (the limits the JAX
     package holds its kernel to against its dense renderer): kernel and
     plain version round the exponent alike and differ by the order of the
     colour sums and exp's last bit. A pair whose raw lies within an ulp of
     1/255 or 0.99 may flip on a pixel and move it by up to 4e-3 (1/255 of a
     colour near 1; depth by ten times that): such pixels are counted, at
-    most MAX_FLIPPED_PIXELS allowed, none past that move or not finite. kend must be equal except on tiles whose max T lies within
-    1e-3 (relative) of the exit threshold 1e-4."""
+    most MAX_FLIPPED_PIXELS allowed, none past that move or not finite. kend
+    must be equal except on tiles whose max T lies within 1e-3 (relative) of
+    the exit threshold 1e-4. The chunk-start state, where saved, is held to
+    the same limits on the slots both walked; a flipped pixel carries its
+    difference into every later chunk's state, so up to MAX_FLIPPED_PIXELS
+    times the deepest walk of (slot, pixel) entries may pass 5e-4."""
     import torch
     from gaussreg_tpu_torch.gs.rasterizer import kernels
 
-    (pk, kk), (pp, kp) = a, b
+    (pk, kk, *sk), (pp, kp, *sp) = a, b
     torch.cuda.synchronize()
     # depth is held to ten times the limit of the other planes: scaled so,
     # one limit serves all five. A NaN is `over` and fails `worst`.
@@ -271,49 +284,125 @@ def compare_forward(a, b):
                 raise AssertionError(f"rasterize_forward: kend differs on tile {t}, "
                                      f"max T {t_max} not at the threshold")
         log(f"rasterize_forward: kend differs on {len(bad)} tiles at the exit threshold")
+    if sk and sk[0] is not None:
+        slots = kernels.written_state_slots(args[2], torch.minimum(kk, kp), args[1].shape[0])
+        sd = (sk[0][slots] - sp[0][slots]).abs()
+        sd[:, 4] /= 10.0
+        s_over = int((sd > 5e-4).any(dim=1).sum())
+        s_worst = sd.max().item() if slots.numel() else 0.0
+        log(f"rasterize_forward: chunk-start state of {slots.numel()} slots, {s_over} "
+            f"(slot, pixel) entries past 5e-4, worst {s_worst:.3e} (depth / 10)")
+        if s_over > MAX_FLIPPED_PIXELS * int(kk.max()) or not s_worst <= 4e-3:
+            raise AssertionError(f"rasterize_forward: state differs in {s_over} entries, "
+                                 f"worst {s_worst}")
     return err
 
 
-def compare_backward(a, b):
+def compare_backward(a, b, args):
     """K5. Every row within 2e-3 of its channel's max (the limit the JAX
     package holds its gradients to): each value is a sum over a tile's 1024
-    pixels, taken in another order by the kernel."""
-    scale = b.abs().amax(dim=0).clamp_min(1e-30)
-    rel = ((a - b).abs() / scale).max().item()
-    if not rel <= 2e-3:
-        raise AssertionError(f"rasterize_backward: rows differ by {rel} of their channel's max")
+    pixels, taken in another order by the kernel. Held so against the plain
+    version's two forms: from the chunk-start state (`b`) and walking each
+    tile's chunks in order from T = 1 (the Pallas kernel's order). A second
+    launch on the same inputs gives the same bits (no atomics)."""
+    import torch
+    from gaussreg_tpu_torch.gs.rasterizer import kernels
+
+    sequential = kernels.rasterize_backward_plain(*args[:10])
+    for what, ref in (("its plain version", b), ("the sequential walk", sequential)):
+        scale = ref.abs().amax(dim=0).clamp_min(1e-30)
+        rel = ((a - ref).abs() / scale).max().item()
+        if not rel <= 2e-3:
+            raise AssertionError(f"rasterize_backward: rows differ from {what} by {rel} of "
+                                 "their channel's max")
+    log(f"rasterize_backward: within {rel:.3e} of each channel's max of the sequential walk")
+    if not torch.equal(a, kernels.rasterize_backward(*args)):
+        raise AssertionError("rasterize_backward: two launches on the same inputs differ")
+    log("rasterize_backward: a second launch gives the same bits")
     return (a - b).abs().max().item()
 
 
 def own_pairs(starts, nchunks, cap):
-    """Pairs the kernels composite when tile t walks its first nchunks[t]
-    chunks: the tile's own rows of those 128-aligned blocks, without the
-    neighbouring tiles' rows that a boundary block also holds."""
+    """Per tile, the pairs the kernels composite when tile t walks its first
+    nchunks[t] chunks: the tile's own rows of those 128-aligned blocks,
+    without the neighbouring tiles' rows that a boundary block also holds."""
     import torch
     from gaussreg_tpu_torch.gs.rasterizer import kernels
 
     s = starts.clamp_max(cap).long()
     c0, c1 = s[:-1], s[1:]
     walked_end = (c0 // kernels.CHUNK + nchunks.long()) * kernels.CHUNK
-    return float((torch.minimum(c1, walked_end) - c0).clamp_min(0).sum())
+    return (torch.minimum(c1, walked_end) - c0).clamp_min(0)
 
 
-def forward_cost(gdata, sorted_gid, starts, height, width, tile_h, tile_w):
+def state_bytes(tile_h, tile_w, nchunks):
+    """Bytes of the chunk-start state of the walked chunks k >= 1: 5 f32
+    per pixel and chunk."""
+    return float((nchunks.long() - 1).clamp_min(0).sum()) * tile_h * tile_w * 20
+
+
+def forward_cost(gdata, sorted_gid, starts, height, width, tile_h, tile_w, save_state=False):
     from gaussreg_tpu_torch.gs.rasterizer import kernels
 
-    _, kend = kernels.rasterize_forward(gdata, sorted_gid, starts, height, width, tile_h, tile_w)
-    pairs = own_pairs(starts, kend, sorted_gid.shape[0])
+    kend = kernels.rasterize_forward(gdata, sorted_gid, starts, height, width, tile_h, tile_w)[1]
+    pairs = float(own_pairs(starts, kend, sorted_gid.shape[0]).sum())
     nbytes = pairs * (64 + 4) + 5 * height * width * 4 + starts.numel() * 8
+    if save_state:
+        nbytes += state_bytes(tile_h, tile_w, kend)
     return (nbytes, pairs * tile_h * tile_w * K4_OPS_PER_PAIR_PIXEL,
-            f"pairs={int(pairs)} image={height}x{width} G={gdata.shape[0] - 1}")
+            f"pairs={int(pairs)} image={height}x{width} G={gdata.shape[0] - 1} "
+            f"state={save_state}")
 
 
 def backward_cost(gdata, sorted_gid, starts, offs, ct_planes, bwd_blocks, height, width,
-                  tile_h, tile_w):
-    pairs = own_pairs(starts, offs[1:] - offs[:-1], sorted_gid.shape[0])
-    nbytes = pairs * (64 + 4 + 64) + 7 * height * width * 4 + starts.numel() * 12
+                  tile_h, tile_w, state=None):
+    nchunks = offs[1:] - offs[:-1]
+    pairs = float(own_pairs(starts, nchunks, sorted_gid.shape[0]).sum())
+    nbytes = (pairs * (64 + 4 + 64) + 7 * height * width * 4 + starts.numel() * 12
+              + state_bytes(tile_h, tile_w, nchunks))
     return (nbytes, pairs * tile_h * tile_w * K5_OPS_PER_PAIR_PIXEL,
-            f"pairs={int(pairs)} buffer={bwd_blocks} blocks")
+            f"pairs={int(pairs)} buffer={bwd_blocks} blocks, {int(offs[-1])} chunks walked")
+
+
+def critical_path_ms(calls, ops_per_pair_pixel):
+    """The critical-path bound of a design that keeps a tile on one SM: the
+    heaviest tile's operations at 1/NUM_SMS of the f32 peak, summed over the
+    calls (one view each). Walked chunks from kend (forward) or offs
+    (backward)."""
+    from gaussreg_tpu_torch.gs.rasterizer import kernels
+
+    total = 0.0
+    for args, kw in calls:
+        gdata, sorted_gid, starts = args[:3]
+        if len(args) > 7:  # the backward: (..., offs, ct_planes, bwd_blocks, h, w, th, tw)
+            nchunks, (tile_h, tile_w) = args[3][1:] - args[3][:-1], args[8:10]
+        else:
+            tile_h, tile_w = args[5:7]
+            nchunks = kernels.rasterize_forward(gdata, sorted_gid, starts, *args[3:7])[1]
+        heaviest = float(own_pairs(starts, nchunks, sorted_gid.shape[0]).max())
+        ops = heaviest * tile_h * tile_w * ops_per_pair_pixel
+        total += ops / (PEAK_FLOPS["f32"] / NUM_SMS) * 1e3
+    return total
+
+
+def report_imbalance(calls):
+    """Per captured forward call (one view): walked pairs per tile and kend,
+    and the bytes of the chunk-start state the call saves."""
+    from gaussreg_tpu_torch.gs.rasterizer import kernels
+
+    for v, (args, kw) in enumerate(calls):
+        gdata, sorted_gid, starts, height, width, tile_h, tile_w = args
+        kend = kernels.rasterize_forward(*args)[1]
+        walked = own_pairs(starts, kend, sorted_gid.shape[0]).float()
+        kf = kend.float()
+        alloc = kernels.state_slots(sorted_gid.shape[0] // kernels.CHUNK, kend.numel())
+        log(f"imbalance view {v}: {kend.numel()} tiles, walked pairs per tile mean "
+            f"{walked.mean().item():.1f} max {int(walked.max())} tiles>=1000 "
+            f"{int((walked >= 1000).sum())} (all {int(walked.sum())}); kend mean "
+            f"{kf.mean().item():.2f} max {int(kend.max())} sum {int(kend.sum())}; chunk-start "
+            f"state written {state_bytes(tile_h, tile_w, kend) / 1e6:.1f} MB, allocated "
+            f"{alloc * tile_h * tile_w * 20 / 1e6:.1f} MB ({alloc} slots), "
+            f"save_state={kw.get('save_state', False)}")
 
 
 def accumulate_cost(grad_rows, slot_pos, row_gid, starts, offs, cap, num_out):
@@ -681,6 +770,7 @@ def main() -> int:
     log(f"fine: scene of {n_fine} gaussians made in {time.perf_counter() - t_scene:.2f} s; "
         f"{len(cams)} views of {cams[0].width}x{cams[0].height}")
     start_err = [float(e) for e in isotropic_transform_error(gt_fine, torch.eye(4, device=dev))]
+    torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launch_counts()
     with Capture(fine_mod, "render",
                  record=lambda a, kw: kw.get("max_tiles_per_gaussian")) as render_mts:
@@ -689,6 +779,8 @@ def main() -> int:
         torch.cuda.synchronize()
         t_fine = time.perf_counter() - t_fine
     fine_counts = _cuda.launch_counts()
+    log(f"fine: torch.cuda.max_memory_allocated() after the fine call "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     losses = fine_out.losses.cpu().numpy()
     end_err = [float(e) for e in isotropic_transform_error(gt_fine, fine_out.transform)]
     chosen_mt = render_mts.calls[-1]
@@ -766,6 +858,15 @@ def main() -> int:
     if len(c_tab.calls) != nv:
         raise AssertionError(f"{len(c_tab.calls)} pair tables built for one step of {nv} "
                              "views: one per backward, none for the probes and targets")
+    report_imbalance(c4.calls[-nv:])
+    ntiles = c4.calls[-1][0][2].shape[0] - 1  # starts has num_tiles + 1 entries
+    launch_shape = {
+        "rasterize_forward": (f"{ntiles} tiles x a cluster of "
+                              f"{raster_mod.forward_cluster_size(FINE_TILE * FINE_TILE)} blocks"),
+        "rasterize_backward": "one block per compacted chunk, "
+                              + ", ".join(f"{a[5]} blocks ({int(a[3][-1])} live)"
+                                          for a, _ in c5.calls[-nv:]),
+    }
     for name, calls, kernel, plain, compare, library, cost, src, replaces in (
         ("rasterize_forward", c4.calls[-nv:], raster_mod.rasterize_forward,
          raster_mod.rasterize_forward_plain, compare_forward, None, forward_cost,
@@ -787,8 +888,13 @@ def main() -> int:
             log(row)
         b_ms, b_by = bound(tot["bytes"], tot["ops"], "f32")
         lib_txt = "none" if tot["library_ms"] is None else f"{tot['library_ms']:.3f} ms"
+        cp_txt = ""
+        if name in launch_shape:
+            cp_ms = critical_path_ms(calls, K4_OPS_PER_PAIR_PIXEL if name == "rasterize_forward"
+                                     else K5_OPS_PER_PAIR_PIXEL)
+            cp_txt = f", critical-path bound {cp_ms:.3f} ms; launched as {launch_shape[name]}"
         log(f"{name}: {nv} calls per step, kernel {tot['ms']:.3f} ms, plain "
-            f"{tot['plain_ms']:.3f} ms, library {lib_txt}, bound {b_ms:.3f} ms ({b_by})")
+            f"{tot['plain_ms']:.3f} ms, library {lib_txt}, bound {b_ms:.3f} ms ({b_by}){cp_txt}")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": fine_counts[name], "max_abs_err": tot["err"],

@@ -8,6 +8,8 @@ where there is no CUDA card. On a machine with one:
 K1 and K3 must equal their plain versions index for index and value for
 value, K6 bit for bit; K2 must lie within 4e-3 of the plain output's max
 magnitude (one bf16 rounding step of a weighted sum, 2^-8 relative).
+The rasterizer's hand-built tiles come from test_torch_port_raster_state.py
+(which imports no JAX at the top).
 """
 
 import numpy as np
@@ -152,20 +154,31 @@ def _pairs_scene(cuda, n, seed, width, height, tile=32, opacity_boost=1.0, z_fro
 
 
 def _check_forward(gdata, gid, starts, height, width, tile):
+    """K4 against its plain version, the chunk-start state included on the
+    chunks both walked (same limits as the planes)."""
     from gaussreg_tpu_torch.gs.rasterizer import kernels
 
     before = kernels.FWD_KERNEL.launches
-    planes_k, kend_k = kernels.rasterize_forward(gdata, gid, starts, height, width, tile, tile)
+    planes_k, kend_k, state_k = kernels.rasterize_forward(gdata, gid, starts, height, width, tile,
+                                                          tile, save_state=True)
     torch.cuda.synchronize()
     assert kernels.FWD_KERNEL.launches == before + 1
-    planes_p, kend_p = kernels.rasterize_forward_plain(gdata, gid, starts, height, width, tile, tile)
+    planes_p, kend_p, state_p = kernels.rasterize_forward_plain(gdata, gid, starts, height, width,
+                                                                tile, tile, save_state=True)
     assert torch.equal(kend_k, kend_p)
     assert (planes_k[[0, 1, 2, 4]] - planes_p[[0, 1, 2, 4]]).abs().max().item() <= 5e-4
     assert (planes_k[3] - planes_p[3]).abs().max().item() <= 5e-3
-    return planes_k, kend_k
+    walked = kernels.written_state_slots(starts, kend_k, gid.shape[0])
+    if walked.numel():
+        diff = (state_k[walked] - state_p[walked]).abs()
+        assert diff[:, :4].max() <= 5e-4 and diff[:, 4].max() <= 5e-3
+    # without the state the kernel computes the same
+    planes_n, kend_n = kernels.rasterize_forward(gdata, gid, starts, height, width, tile, tile)
+    assert torch.equal(planes_n, planes_k) and torch.equal(kend_n, kend_k)
+    return planes_k, kend_k, state_k
 
 
-def _check_backward(gdata, gid, starts, planes, kend, height, width, tile, bwd_blocks):
+def _check_backward(gdata, gid, starts, planes, kend, state, height, width, tile, bwd_blocks):
     from gaussreg_tpu_torch.gs.rasterizer import kernels
 
     gen = torch.Generator(device=gdata.device).manual_seed(0)
@@ -173,14 +186,19 @@ def _check_backward(gdata, gid, starts, planes, kend, height, width, tile, bwd_b
     v = (d[:4] * planes[:4]).sum(0)
     ct = torch.cat([d, planes[4:5], v[None]]).contiguous()
     offs = kernels.compacted_offsets(kend, bwd_blocks)
+    args = (gdata, gid, starts, offs, ct, bwd_blocks, height, width, tile, tile)
     before = kernels.BWD_KERNEL.launches
-    rows_k = kernels.rasterize_backward(gdata, gid, starts, offs, ct, bwd_blocks, height, width, tile, tile)
+    rows_k = kernels.rasterize_backward(*args, state=state)
     torch.cuda.synchronize()
     assert kernels.BWD_KERNEL.launches == before + 1
-    rows_p = kernels.rasterize_backward_plain(gdata, gid, starts, offs, ct, bwd_blocks, height, width, tile, tile)
-    scale = rows_p.abs().amax(dim=0).clamp_min(1e-20)
-    assert ((rows_k - rows_p).abs() / scale).max().item() <= 2e-3
+    # against the chunk-parallel plain walk from the kernel's own state, and
+    # against the sequential walk, which recomputes each chunk's start
+    for rows_p in (kernels.rasterize_backward_plain(*args, state=state),
+                   kernels.rasterize_backward_plain(*args)):
+        scale = rows_p.abs().amax(dim=0).clamp_min(1e-20)
+        assert ((rows_k - rows_p).abs() / scale).max().item() <= 2e-3
     assert torch.equal(rows_k[:, [6, 7, 12, 13, 14, 15]], torch.zeros_like(rows_k[:, :6]))
+    assert torch.equal(rows_k, kernels.rasterize_backward(*args, state=state))  # repeats exactly
     return rows_k, offs
 
 
@@ -197,14 +215,15 @@ def test_rasterize_kernels_match_plain(cuda, n, width, height, tile, boost, fron
 
     gdata, b = _pairs_scene(cuda, n, n, width, height, tile, boost, front)
     gid, starts = b.sorted_gid, b.starts
-    planes, kend = _check_forward(gdata, gid, starts, height, width, tile)
+    planes, kend, state = _check_forward(gdata, gid, starts, height, width, tile)
     if front:
         assert (kend < torch.div(starts[1:] - starts[:-1] + 127, 128, rounding_mode="floor")).any()
     full = gid.shape[0] // kernels.CHUNK + kend.shape[0]
-    _check_backward(gdata, gid, starts, planes, kend, height, width, tile, full)
+    _check_backward(gdata, gid, starts, planes, kend, state, height, width, tile, full)
     # a cap that clips: the last tiles lose their chunks, nothing past it is written
     clipped = max(1, int(kend.sum()) // 2)
-    rows, offs = _check_backward(gdata, gid, starts, planes, kend, height, width, tile, clipped)
+    rows, offs = _check_backward(gdata, gid, starts, planes, kend, state, height, width, tile,
+                                 clipped)
     assert int(offs[-1]) == clipped and rows.shape[0] == clipped * kernels.CHUNK
 
 
@@ -223,11 +242,11 @@ def test_rasterize_empty_and_one_block_tiles(cuda):
     gid = torch.full((128,), g, dtype=torch.int32, device=cuda)
     gid[3:8] = torch.arange(g, dtype=torch.int32, device=cuda)
     starts = torch.tensor([3, 3, 8, 8, 8], dtype=torch.int32, device=cuda)  # tile 1 owns [3, 8)
-    planes, kend = _check_forward(gdata, gid, starts, 32, 128, 32)
+    planes, kend, state = _check_forward(gdata, gid, starts, 32, 128, 32)
     assert kend.tolist() == [0, 1, 0, 0]
     assert torch.equal(planes[4, :, :32], torch.ones(32, 32, device=cuda))
     assert planes[:4, :, 64:].abs().max().item() == 0.0
-    rows, _ = _check_backward(gdata, gid, starts, planes, kend, 32, 128, 32, 2)
+    rows, _ = _check_backward(gdata, gid, starts, planes, kend, state, 32, 128, 32, 2)
     assert rows[3:8].abs().max().item() > 0 and rows[8:].abs().max().item() == 0
 
 
@@ -269,8 +288,8 @@ def test_segment_accumulate_kernel_matches_plain(cuda, n, width, height, tile, b
 
     gdata, b = _pairs_scene(cuda, n, n, width, height, tile, boost, front)
     table = slot_positions(b.order, b.row_gid.shape[0], 32)
-    planes, kend = kernels.rasterize_forward(gdata, b.sorted_gid, b.starts, height, width,
-                                             tile, tile)
+    planes, kend, state = kernels.rasterize_forward(gdata, b.sorted_gid, b.starts, height, width,
+                                                    tile, tile, save_state=True)
     gen = torch.Generator(device=cuda).manual_seed(0)
     d = torch.randn(5, height, width, device=cuda, generator=gen)
     ct = torch.cat([d, planes[4:5], (d[:4] * planes[:4]).sum(0)[None]]).contiguous()
@@ -279,7 +298,7 @@ def test_segment_accumulate_kernel_matches_plain(cuda, n, width, height, tile, b
     for bwd_blocks in (full, max(1, int(kend.sum()) // 2)):
         offs = kernels.compacted_offsets(kend, bwd_blocks)
         rows = kernels.rasterize_backward(gdata, b.sorted_gid, b.starts, offs, ct, bwd_blocks,
-                                          height, width, tile, tile)
+                                          height, width, tile, tile, state=state)
         args = (rows, table, b.row_gid, b.starts, offs, cap, g1)
         before = acc.KERNEL.launches
         out_k = acc.accumulate_pairs(*args)
@@ -291,3 +310,51 @@ def test_segment_accumulate_kernel_matches_plain(cuda, n, width, height, tile, b
         oracle[g1 - 1] = 0.0
         assert torch.equal(out_k.cpu(), oracle)
         assert torch.equal(out_k, acc.accumulate_pairs(*args))  # repeats exactly
+
+
+@pytest.mark.parametrize("scene", ["silhouette", "staggered"])
+def test_rasterize_kernels_hand_built_tiles(cuda, scene):
+    """The hand-built tiles of test_torch_port_raster_state.py on the card.
+    Silhouette: a tile half covered and half empty walks all of its nine
+    chunks (kend = chunk count), so the backward's blocks start from eight
+    saved states. Staggered: the cluster blocks holding the top rows fall
+    under T_EPS chunks before those holding the bottom rows; the exit
+    agreement must stop the tile after the plain version's kend, which is
+    below the chunk count. K4, its state and K5 against their plain
+    versions (limits above); two K5 runs equal bit for bit."""
+    from test_torch_port_raster_state import chunk_counts, silhouette_pairs, staggered_pairs
+
+    gdata, gid, starts, height, width, tile = (
+        silhouette_pairs if scene == "silhouette" else staggered_pairs)(cuda)
+    planes, kend, state = _check_forward(gdata, gid, starts, height, width, tile)
+    nch = chunk_counts(starts, gid.shape[0])
+    if scene == "silhouette":
+        assert nch[0] >= 8 and int(kend[0]) == nch[0]
+    else:
+        assert 0 < int(kend[0]) < nch[0]
+    full = gid.shape[0] // 128 + kend.shape[0]
+    _check_backward(gdata, gid, starts, planes, kend, state, height, width, tile, full)
+
+
+def test_forward_refuses_a_cluster_it_cannot_place(cuda):
+    """A cluster of 16 blocks per tile (over the portable 8) is refused by
+    the card: the launch raises, is not counted and is not retried without
+    a cluster."""
+    from gaussreg_tpu_torch.gs.rasterizer import kernels
+    from test_torch_port_raster_state import silhouette_pairs
+
+    gdata, gid, starts, height, width, tile = silhouette_pairs(cuda)
+    nty, ntx = height // tile, width // tile
+    planes = torch.empty((5, height, width), device=cuda)
+    kend = torch.empty((nty * ntx,), dtype=torch.int32, device=cuda)
+    before = kernels.FWD_KERNEL.launches
+    with pytest.raises(RuntimeError):
+        kernels.FWD_KERNEL.launch(gdata.data_ptr(), gid.data_ptr(), starts.data_ptr(),
+                                  planes.data_ptr(), kend.data_ptr(), 0, gid.shape[0], ntx, nty,
+                                  tile, tile, 16)
+    torch.cuda.synchronize()
+    assert kernels.FWD_KERNEL.launches == before
+    with pytest.raises(ValueError):  # the kernel walks from the state: it must be given
+        kernels.rasterize_backward(gdata, gid, starts, torch.zeros(3, dtype=torch.int32,
+                                   device=cuda), torch.zeros(7, height, width, device=cuda), 4,
+                                   height, width, tile, tile)
