@@ -5,7 +5,7 @@
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
-1. build: nvcc compiles every csrc/*.cu kernel (six sources, one process
+1. build: nvcc compiles every csrc/*.cu kernel (eight sources, one process
    per source, in parallel) into gaussreg_tpu_torch/_build/.
 2. main path: the trained checkpoint (checkpoints/synthetic_coarse.msgpack)
    at make_cfg() width registers the 8 held-out synthetic pairs
@@ -22,10 +22,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    captured inputs; the kernel is held against its plain PyTorch version
    (K1 and K3 index-for-index and value-for-value; K2 within 4e-3 of the
    plain output's max, the size of one bf16 rounding step of a weighted
-   sum) and timed (CUDA events, mean of 5 after a warm-up, inputs left in
-   L2 as the forward leaves them) beside the plain version, one PyTorch
-   library call for the same function, and the least time the card could
-   take (bytes at 3.35 TB/s or operations at the inputs' peak rate).
+   sum) and timed (kernel and library call by the slope between CUDA
+   graphs of 8 and 40 launches, so that the wrappers' host time between
+   launches is not counted; the plain version by CUDA events, mean of 5
+   after a warm-up; inputs left in L2 as the forward leaves them) beside
+   the plain version, one PyTorch library call for the same function, and
+   the least time the card could take (bytes at 3.35 TB/s or operations at
+   the inputs' peak rate).
 5. profile: one pair under torch.profiler, device time by kernel and the
    device's busy share of the wall time.
 6. fine registration at full width: a synthetic scene of 200 000 gaussians
@@ -49,8 +52,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    versions (limits at `compare_forward`, `compare_backward`, the forward's
    chunk-start state included; two K5 launches equal bit for bit; K6 equal
    bit for bit to its plain version and to `index_add_` on the compacted
-   ids on the host, which adds in row order) and timed beside them and
-   beside their bounds (K4 and K5 over the tiles' own pairs of the chunks
+   ids on the host, which adds in row order) and timed (K4 and K5 by
+   `graph_ms`, as K1-K3) beside them and beside their bounds (K4 and K5 over the tiles' own pairs of the chunks
    walked) and, for K4 and K5 on their log lines, the critical-path bound
    of a design that keeps a tile on one SM (the heaviest tile's operations
    at 1/132 of the f32 peak; not in the kernels line, which holds measured
@@ -65,10 +68,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    two steps run under torch.profiler, which also counts the sort kernels
    by name.
 
+9. probes: the twins of the TPU probes P1 (three row gathers,
+   gaussreg_tpu_torch/tools/probe_vmem_gather.py) and P2 (the compositing
+   loop with cores A-D, tools/probe_kernels_r5.py) at the probes' shapes,
+   launches counted around their run; held against their plain versions
+   (`probe_phase`, `compare_cores`), timed by graph slopes and bounded.
+10. CLIs: `python -m gaussreg_tpu_torch.tools.demo` on phase 3's .ply pair
+   with the trained checkpoint (RRE < 5 degrees), again with
+   --torch_snapshot on a saved fake reference state dict, and
+   `python -m gaussreg_tpu_torch.tools.fuse` on the written transform
+   (`cli_phase`). The snapshot's path (the reference's neighbour limits,
+   89 slots at level 0) also runs in this process with the launch counts
+   zeroed before and read after, and each of its K2 calls is held against
+   the plain version as in phase 4 (`snapshot_path`).
+
 Prints the build seconds, the card's name and power limit, a line per
 pair, a line per kernel call, the profiles, a {"kernels": [...]} JSON line
-listing all six kernels, and as the last line {"ok": true, "device": {...}}.
-Imports nothing of JAX.
+listing all thirteen kernels (K1-K6, P1's three, P2's four), the card's
+name and power limit again, and as the last line {"ok": true, "device":
+{...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -111,6 +129,17 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, r_lo: int = 8, r_hi: int = 40) -> float:
+    """Device milliseconds per call of fn() without the host's time between
+    launches: the slope between CUDA graphs of r_lo and r_hi calls, replayed
+    and timed with CUDA events (utils.timing.slope). What remains of a
+    launch is the kernel and the device's gap between two kernels of a
+    graph."""
+    from gaussreg_tpu_torch.utils.timing import slope
+
+    return slope(lambda i: fn(), r_lo, r_hi) * 1e3
+
+
 def bound(bytes_moved: float, ops: float, kind: str):
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FLOPS[kind] * 1e3
@@ -145,16 +174,18 @@ def measure(name, calls, kernel, plain, compare, library, cost, kind, plain_reps
     (`compare(kernel_out, plain_out, args)` raises on a mismatch and
     returns the max abs error), time
     kernel, plain version and library call (None: no single PyTorch call
-    computes the function), and bound the call's work.
+    computes the function), and bound the call's work. Kernel and library
+    call are timed by `graph_ms`, so that the wrapper's host time between
+    launches is not counted; the plain version by `cuda_ms`.
     Returns the per-call lines and the totals over the calls."""
     rows = []
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0 if library else None, err=0.0,
                bytes=0.0, ops=0.0)
     for args, kw in calls:
         err = compare(kernel(*args, **kw), plain(*args, **kw), args)
-        t_k = cuda_ms(lambda: kernel(*args, **kw))
+        t_k = graph_ms(lambda: kernel(*args, **kw))
         t_p = cuda_ms(lambda: plain(*args, **kw), reps=plain_reps)
-        t_l = cuda_ms(library(*args, **kw)) if library else None
+        t_l = graph_ms(library(*args, **kw)) if library else None
         nbytes, ops, shape = cost(*args, **kw)
         b_ms, _ = bound(nbytes, ops, kind)
         lib_txt = f"{t_l:.4f}ms" if library else "none"
@@ -616,6 +647,266 @@ def write_scene_plys(directory, cfg, seed):
     return paths, m
 
 
+# P2's limits against its plain version on the card: kernel and plain
+# version compute the same alpha (the exponent's products and sums rounded
+# alike, the accurate exp and log1p) and differ by the order of the prefix
+# and colour sums: 1e-5; B's bf16 rounding of lg may land on the other
+# neighbour where the two log1p differ in the last bit: 5e-4 (one bf16 step
+# of one lg moves its pixel's later weights by up to 2^-8 |lg|). Should exp
+# differ in the last bit, a raw within an ulp of 1/255 flips its pair and
+# moves a pixel by up to 1/255 of a colour: at most MAX_FLIPPED_PIXELS such
+# pixels, none past 4e-3. Against core A (as the JAX probe prints it): C and
+# D within 1e-4 (another rounding of the same prefix), B within 1e-2 (bf16
+# keeps 8 bits of each lg: the prefix is off by up to 2^-9 of sum |lg|, and
+# the colour by that share of itself, |ln T| <= ~6 here).
+P2_LIMITS = {"A": 1e-5, "B": 5e-4, "C": 1e-5, "D": 1e-5}
+P2_AGAINST_A = {"B": 1e-2, "C": 1e-4, "D": 1e-4}
+# H100 SXM: 16 special-function results per SM and clock (the CUDA
+# programming guide's throughput table, compute capability 9.0)
+MUFU_PER_SM_CLOCK = 16
+
+
+def compare_cores(out, ref, core):
+    """P2: kend equal; rgb and T within P2_LIMITS[core] of the plain
+    version, but for at most MAX_FLIPPED_PIXELS alpha-cut flips. Returns
+    the max abs difference."""
+    import torch
+
+    torch.cuda.synchronize()
+    if not torch.equal(out[:, 5], ref[:, 5]):
+        raise AssertionError(f"probe_composite_{core}: kend differs from its plain version")
+    diff = (out[:, :5] - ref[:, :5]).abs()
+    over = ~(diff <= P2_LIMITS[core]).all(dim=1)  # a NaN is over
+    flipped = int(over.sum())
+    worst = diff.max().item()
+    if flipped > MAX_FLIPPED_PIXELS or not worst <= 4e-3:
+        raise AssertionError(f"probe_composite_{core}: {flipped} pixels past "
+                             f"{P2_LIMITS[core]}, worst {worst}")
+    return worst
+
+
+def walked_blocks(starts, kend, nblk):
+    """Distinct blocks the tiles walked: tile t reads blocks
+    starts[t] // 128 .. + kend[t] - 1."""
+    import torch
+
+    first = starts[:-1].long().clamp_max(nblk * 128) // 128
+    span = torch.arange(int(kend.max()) if kend.numel() else 0, device=kend.device)
+    ids = first[:, None] + span[None]
+    return int(torch.unique(ids[span[None] < kend.long()[:, None]]).numel())
+
+
+def probe_phase(dev, kernels):
+    """9. The two TPU probes' twins at the probes' shapes: P1 (G=4096, K=128,
+    C=8) and P2 (make_blocks(300, 7)), each variant launched once with the
+    counts zeroed just before and read just after; then each held against
+    its plain version (P1 bit for bit, and equal to table[idx]; P2 by
+    compare_cores, and B-D against A), timed by a slope over graph-replayed
+    launches with inputs perturbed per repetition (P1 beside
+    torch.index_select), and bounded. For P2 also the special-function
+    unit's pace: the time the call's transcendentals need at 16 per SM and
+    clock, at the card's clock, beside the kernel's time."""
+    import torch
+    from gaussreg_tpu_torch.ops import _cuda
+    from gaussreg_tpu_torch.tools import probe_kernels_r5 as p2
+    from gaussreg_tpu_torch.tools import probe_vmem_gather as p1
+    from gaussreg_tpu_torch.utils.timing import slope
+
+    table, idx = p1.make_inputs(0, device=dev)
+    blocks_np, starts_np, _ = p2.make_blocks()
+    blocks, starts = torch.from_numpy(blocks_np).to(dev), torch.from_numpy(starts_np).to(dev)
+    tiles = starts.numel() - 1
+    _cuda.reset_launch_counts()
+    gathered = {v: p1.gather(v, table, idx) for v in p1.PLAIN}
+    composited = {c: p2.run_fwd(blocks, starts, c, tiles) for c in p2.CORES}
+    torch.cuda.synchronize()
+    counts = _cuda.launch_counts()
+    names = [f"probe_gather_{v}" for v in p1.PLAIN] + [f"probe_composite_{c}" for c in p2.CORES]
+    log(f"probes: P1 at G={p1.G} K={p1.K} C={p1.C}, P2 at {tiles} tiles x "
+        f"{blocks.shape[0] // tiles} blocks; launches { {n: counts[n] for n in names} }")
+    if any(counts[n] != 1 for n in names):
+        raise AssertionError("a probe kernel was not launched once by the probes' run")
+
+    # P1
+    ref = table[idx.long()]
+    inputs = [p1.make_inputs(1 + i, device=dev) for i in range(64)]
+    at = lambda fn: (lambda i: fn(*inputs[i % len(inputs)]))
+    t_lib = slope(at(lambda t, i: torch.index_select(t, 0, i)), 8, 40) * 1e3
+    b_ms, b_by = bound(p1.gather_bytes(table, idx), 0.0, "f32")
+    for v, line in zip(p1.PLAIN, (25, 44, 69)):
+        out = gathered[v]
+        torch.cuda.synchronize()
+        if not (torch.equal(out, ref) and torch.equal(p1.PLAIN[v](table, idx), ref)):
+            raise AssertionError(f"probe_gather_{v} differs from table[idx]")
+        t_k = slope(at(lambda t, i, v=v: p1.gather(v, t, i)), 8, 40) * 1e3
+        t_p = slope(at(p1.PLAIN[v]), 8, 40) * 1e3
+        log(f"probe_gather_{v}: equal to table[idx] bit for bit, kernel {t_k:.5f} ms, plain "
+            f"{t_p:.5f} ms, torch.index_select {t_lib:.5f} ms, bound {b_ms:.6f} ms ({b_by})")
+        kernels.append({
+            "name": f"probe_gather_{v}", "route": "cuda",
+            "source": "gaussreg_tpu_torch/csrc/probe_gather.cu",
+            "replaces": f"tools/probe_vmem_gather.py:{line}",
+            "launches": counts[f"probe_gather_{v}"], "max_abs_err": (out - ref).abs().max().item(),
+            "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_lib,
+        })
+
+    # P2
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mufu_rate = MUFU_PER_SM_CLOCK * sms * clock_mhz * 1e6
+    copies = p2.perturbed(blocks, 16)
+    for c in p2.CORES:
+        out = composited[c]
+        err = compare_cores(out, p2.composite_plain(blocks, starts, c, tiles), c)
+        vs_a = (out[:, :5] - composited["A"][:, :5]).abs().max().item()
+        if c in P2_AGAINST_A and not vs_a <= P2_AGAINST_A[c]:
+            raise AssertionError(f"probe_composite_{c}: {vs_a} from core A")
+        t_k = slope(lambda i, c=c: p2.run_fwd(copies[i], starts, c, tiles)) * 1e3
+        t_p = cuda_ms(lambda c=c: p2.composite_plain(blocks, starts, c, tiles), reps=2)
+        kend = out[:, 5, 0]
+        pp = p2.pair_pixels(out, starts)
+        nbytes = (walked_blocks(starts, kend, blocks.shape[0]) * p2.NCHAN * p2.CHUNK * 4
+                  + starts.numel() * 4 + out.numel() * 4)
+        b_ms, b_by = bound(nbytes, pp * p2.OPS_PER_PAIR_PIXEL[c], "f32")
+        sfu_ms = pp * p2.TRANSCENDENTALS_PER_PAIR_PIXEL[c] / mufu_rate * 1e3
+        log(f"probe_composite_{c}: kend mean {kend.mean().item():.2f} ({int(kend.sum())} chunks "
+            f"walked, {int((kend < blocks.shape[0] // tiles).sum())} tiles left early), "
+            f"err vs plain {err:.3e}, "
+            f"vs A {vs_a:.3e}; kernel {t_k:.4f} ms ({t_k * 1e6 / blocks.shape[0]:.0f} ns/blk), "
+            f"plain {t_p:.3f} ms, bound {b_ms:.4f} ms ({b_by}; {pp / 1e6:.1f} M pair-pixels x "
+            f"{p2.OPS_PER_PAIR_PIXEL[c]:.0f}, {nbytes / 1e6:.1f} MB); "
+            f"{p2.TRANSCENDENTALS_PER_PAIR_PIXEL[c]} transcendentals per pair-pixel, "
+            f"{sfu_ms:.4f} ms at one MUFU op each ({MUFU_PER_SM_CLOCK} per SM and clock, "
+            f"{sms} SMs at {clock_mhz:.0f} MHz), {100 * sfu_ms / t_k:.1f}% of the kernel's time")
+        kernels.append({
+            "name": f"probe_composite_{c}", "route": "cuda",
+            "source": "gaussreg_tpu_torch/csrc/probe_composite.cu",
+            "replaces": "tools/probe_kernels_r5.py:189",
+            "launches": counts[f"probe_composite_{c}"], "max_abs_err": err,
+            "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        })
+    del copies
+
+
+def snapshot_path(snapshot, ref_ply, src_ply, dev, per_pair):
+    """The path `demo --torch_snapshot` takes, run in this process:
+    load_for_inference (the reference's neighbour limits, 89 slots at level
+    0, past the 48 of K2's 64-row blocks) and register_gs_pair, with the
+    launch counts zeroed just before and read just after (per_pair each).
+    Then every K2 call of that run is replayed, held against its plain
+    version within 4e-3 of its max and timed, as in phase 4. Returns the
+    counts."""
+    import numpy as np
+    import torch
+    from gaussreg_tpu_torch import api
+    from gaussreg_tpu_torch.config import make_cfg
+    from gaussreg_tpu_torch.engine.torch_import import load_for_inference
+    from gaussreg_tpu_torch.models import kpconv as kpconv_mod
+    from gaussreg_tpu_torch.models.registration import create_model
+    from gaussreg_tpu_torch.ops import _cuda, kpconv_kernel
+
+    cfg = make_cfg()
+    cfg, model, report = load_for_inference(snapshot, cfg, create_model(cfg, dev))
+    _cuda.reset_launch_counts()
+    with Capture(kpconv_mod, "kpconv_fused_apply") as cap:
+        res = api.register_gs_pair(ref_ply, src_ply, model, cfg, fine=False, device=dev)
+    torch.cuda.synchronize()
+    counts = _cuda.launch_counts()
+    tr = np.asarray(res["transform"])
+    if tr.shape != (4, 4) or not np.isfinite(tr).all():
+        raise AssertionError(f"the snapshot path gave the transform {tr}")
+    for name, n in per_pair.items():
+        if counts[name] != n:
+            raise AssertionError(f"{name}: {counts[name]} launches on the snapshot path, "
+                                 f"expected {n}")
+    widths = [args[0].shape[2] for args, _ in cap.calls]
+    if max(widths) <= 48:
+        raise AssertionError(f"the snapshot path's K2 calls took H = {widths}: none past 48")
+    rows, tot = measure("kpconv_fused_apply (snapshot path)", cap.calls,
+                        kpconv_kernel.kpconv_fused_apply, kpconv_kernel.reference_apply,
+                        within_bf16_step, kpconv_einsums, kpconv_cost, "bf16")
+    for row in rows:
+        log(row)
+    b_ms, b_by = bound(tot["bytes"], tot["ops"], "bf16")
+    log(f"snapshot path: load_for_inference (per_layer_kernel_geometry="
+        f"{report['per_layer_kernel_geometry']}, neighbour limits "
+        f"{tuple(cfg.capacity.neighbor_limits)}) + register_gs_pair; launches "
+        f"{ {n: counts[n] for n in per_pair} }; kpconv_fused_apply {len(widths)} calls, "
+        f"{sum(h > 48 for h in widths)} past 48 slots, max err vs plain {tot['err']:.3e}, "
+        f"kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, library "
+        f"{tot['library_ms']:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+    return counts
+
+
+def cli_phase(dev, per_pair):
+    """10. The CLIs as a user runs them, each in its own process:
+    `python -m gaussreg_tpu_torch.tools.demo` on the two .ply files of phase
+    3 with the trained checkpoint (the transform within 5 degrees of the
+    known rotation), again with --torch_snapshot on a saved
+    fake_reference_state_dict() (exit 0, a finite transform), then
+    `python -m gaussreg_tpu_torch.tools.fuse` on the written transform (the
+    fused .ply reads back, finite, with between N and 2N gaussians). The
+    snapshot's path also runs in this process (`snapshot_path`): launches
+    counted and K2 held against its plain version at that path's shapes."""
+    import numpy as np
+    import torch
+    from gaussreg_tpu_torch.config import make_cfg
+    from gaussreg_tpu_torch.engine.torch_import import fake_reference_state_dict
+    from gaussreg_tpu_torch.gs.ply import load_gaussians
+
+    def cli(module, *argv):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"gaussreg_tpu_torch.tools.{module}", *argv],
+                              cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"{module} exited with {proc.returncode}:\n"
+                                 f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        return time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        (ref_ply, src_ply), gt = write_scene_plys(tmp, make_cfg(), 20_000_100)
+        out_dir = os.path.join(tmp, "demo")
+        dt = cli("demo", "--ref", ref_ply, "--src", src_ply, "--weights", CKPT,
+                 "--output_dir", out_dir)
+        names = ("point_cloud_src_org.ply", "point_cloud_ref.ply", "point_cloud_src.ply",
+                 "estimated_transform.npz")
+        if not all(os.path.exists(os.path.join(out_dir, n)) for n in names):
+            raise AssertionError(f"demo wrote {sorted(os.listdir(out_dir))}")
+        npz = os.path.join(out_dir, "estimated_transform.npz")
+        tr = np.load(npz)["estimated_transform"]
+        if tr.shape != (4, 4) or not np.isfinite(tr).all():
+            raise AssertionError(f"demo wrote the transform {tr}")
+        err = rot_err(tr, gt)
+        log(f"cli: demo in {dt:.2f} s (its own process), RRE vs GT {err:.3f} deg")
+        if not err < 5.0:
+            raise AssertionError(f"demo rotation error {err} deg")
+
+        snapshot = os.path.join(tmp, "snapshot.pth.tar")
+        torch.save({"model": {k: torch.from_numpy(v)
+                              for k, v in fake_reference_state_dict().items()}}, snapshot)
+        out2 = os.path.join(tmp, "demo_snapshot")
+        dt = cli("demo", "--ref", ref_ply, "--src", src_ply, "--torch_snapshot", snapshot,
+                 "--output_dir", out2)
+        tr2 = np.load(os.path.join(out2, "estimated_transform.npz"))["estimated_transform"]
+        if tr2.shape != (4, 4) or not np.isfinite(tr2).all():
+            raise AssertionError(f"demo --torch_snapshot wrote the transform {tr2}")
+        log(f"cli: demo --torch_snapshot (random reference weights) in {dt:.2f} s, a finite "
+            "transform")
+        snapshot_path(snapshot, ref_ply, src_ply, dev, per_pair)
+
+        fused_ply = os.path.join(tmp, "fused.ply")
+        dt = cli("fuse", "--input1", ref_ply, "--input2", src_ply, "--transform_path", npz,
+                 "--output", fused_ply)
+        fused = load_gaussians(fused_ply)
+        n_in = min(load_gaussians(ref_ply).num_gaussians, load_gaussians(src_ply).num_gaussians)
+    fields = (fused.xyz, fused.f_dc, fused.f_rest, fused.opacity, fused.scales, fused.rots)
+    log(f"cli: fuse in {dt:.2f} s wrote {fused.num_gaussians} gaussians from 2 x ~{n_in}")
+    if not (all(np.isfinite(f).all() for f in fields) and n_in <= fused.num_gaussians <= 2 * n_in):
+        raise AssertionError(f"fuse wrote {fused.num_gaussians} gaussians from 2 x {n_in}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--pairs", type=int, default=8, help="held-out pairs to register")
@@ -655,7 +946,9 @@ def main() -> int:
     from gaussreg_tpu_torch.ops import fused_select, kpconv_kernel, select_k
     from gaussreg_tpu_torch.ops import neighbors as neighbors_mod
 
-    # 1. build
+    # 1. build (the path's kernels and the probes' of phase 9)
+    from gaussreg_tpu_torch.tools import probe_kernels_r5, probe_vmem_gather  # noqa: F401
+
     build_s = _cuda.build_all()
     log(f"build: nvcc {build_s:.2f} s for {len(_cuda.KERNELS)} kernels (parallel)")
     smi = subprocess.run(
@@ -909,6 +1202,10 @@ def main() -> int:
                 f"{tot['launch_ms']:.3f} ms; index_add_ {tot['library_ms']:.3f} ms")
     profile_backward(src_g, cams)
     profile_fine_steps(ref_g, src_g, cams)
+
+    # 9. the probes' twins; 10. the CLIs
+    probe_phase(dev, kernels)
+    cli_phase(dev, per_pair)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -17,9 +17,10 @@
 // 3.35 TB/s).
 //
 // Design (mma.sync m16n8k16 bf16 tensor-core tiles, cp.async copies):
-//   - a block owns 64 rows and a 32/64/128-column slice of D, so W is
-//     read from L2 once per 64 rows (blocks of one row range run next to
-//     each other and share nf and infl in L2);
+//   - a block owns 64 rows (32 past 48 neighbour slots, below) and a
+//     32/64/128-column slice of D, so W is read from L2 once per row block
+//     (blocks of one row range run next to each other and share nf and
+//     infl in L2);
 //   - the block's influences (64 x H x K, a contiguous span) are copied in
 //     once by 16-byte cp.async and stay in shared memory;
 //   - the channels go in chunks of 16. For each chunk the block streams
@@ -42,8 +43,13 @@
 //     halves the D tile once if the doubled grid still fits in one wave:
 //     each further D tile repeats stage 1, but twice the SMs work.
 // Stage-1 padding: H is walked in steps of 16 (35 -> 48 at level 0); the
-// padded MMA depth is tensor-core time. Shared memory bounds H: H <= 44
-// for every K <= 16.
+// padded MMA depth is tensor-core time. Shared memory and the influence
+// fragments held in registers bound H: at 64 rows per block H <= 48 where
+// the tiles fit (H <= 44 at K = 16). Wider neighbourhoods (the reference
+// checkpoint's limits, 89 at level 0) take blocks of 32 rows: 8-row pieces,
+// one row per warp, twice the neighbour steps in the same registers, so
+// H <= 96 for every K <= 16, summed over all H in f32 and rounded to bf16
+// once, as at 64 rows.
 // What bounds a call (tools/kpconv_variants.py on the H100): dropping
 // stage 2, or doing it twice, moves a pair by under a fifth, and dropping
 // stage 1's products by about a fifth; the rest is the copy pipeline's
@@ -60,16 +66,14 @@
 
 namespace {
 
-constexpr int kRows = 64;      // rows per block
-constexpr int kPieceRows = 16;  // rows per streamed piece: two per warp
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRing = 4;       // pieces in the ring
 constexpr int kCc = 16;        // channels per chunk
 constexpr int kMaxK = 16;
-constexpr int kMaxHs = 3;      // neighbour steps of 16
-constexpr int kMaxH = 44;      // shared memory at K = 16 (the 32-column D tile)
-constexpr int kSteps = kRows / kPieceRows;  // pieces per chunk
+constexpr int kSteps = 4;      // pieces per chunk: a piece is ROWS / 4 rows
+constexpr int kMaxH = 96;      // at 32 rows per block, K = 16, the 32-column D tile
+constexpr size_t kMaxSmem = 227 * 1024;
 
 #ifndef KPCONV_STAGE1_REPS
 #define KPCONV_STAGE1_REPS 1  // 0 drops stage 1's MMAs (its copies stay)
@@ -83,16 +87,20 @@ constexpr int kSteps = kRows / kPieceRows;  // pieces per chunk
 
 __host__ __device__ inline size_t align128(size_t n) { return (n + 127) & ~size_t(127); }
 
+// neighbour steps of 16 a block of `rows` rows takes: the influence
+// fragments of its kSteps x (rows / 32) rows per warp fill 96 registers
+__host__ __device__ constexpr int max_hsteps(int rows) { return 3 * 64 / rows; }
+
 struct Layout {
   size_t infl, ring, piece, a2, w, total;
   int a2s;  // stage-2 tile row stride in bf16 (K*16 + 8: conflict-free ldmatrix)
-  __host__ __device__ Layout(int h, int kk, int dt) {
+  __host__ __device__ Layout(int h, int kk, int dt, int rows) {
     a2s = kk * kCc + 8;
-    piece = (size_t)(kPieceRows * h + 16) * 32;  // + 16 zero slots read past the last row
+    piece = (size_t)(rows / kSteps * h + 16) * 32;  // + 16 zero slots read past the last row
     infl = 0;
-    ring = align128((size_t)kRows * h * kk * 2);
+    ring = align128((size_t)rows * h * kk * 2);
     a2 = align128(ring + kRing * piece);
-    w = align128(a2 + (size_t)kRows * a2s * 2);
+    w = align128(a2 + (size_t)rows * a2s * 2);
     total = w + (size_t)kk * kCc * dt * 2;  // + W's (K*16) x D_tile tile
   }
 };
@@ -157,18 +165,24 @@ __device__ __forceinline__ int w_swz(int q, int vpr) {
 }
 
 // VEC: bytes per copy of nf (16; 8 when C % 8 != 0). NT: 8-column MMA
-// tiles per warp in stage 2 (D_tile = 32 * NT).
-template <int VEC, int NT>
+// tiles per warp in stage 2 (D_tile = 32 * NT). ROWS: rows per block (64,
+// or 32 for H past 48).
+template <int VEC, int NT, int ROWS>
 __global__ void __launch_bounds__(kThreads, 1)
 kpconv_fused_kernel(const __nv_bfloat16* __restrict__ nf,
                     const __nv_bfloat16* __restrict__ infl,
                     const __nv_bfloat16* __restrict__ w, float* __restrict__ out,
                     int num_rows, int h, int kk, int c, int d) {
+  constexpr int kRows = ROWS;
+  constexpr int kPieceRows = ROWS / kSteps;  // rows per streamed piece
+  constexpr int kSub = kPieceRows / kWarps;  // rows per warp and piece
+  constexpr int kMaxHs = max_hsteps(ROWS);   // neighbour steps of 16
+  constexpr int kMt = ROWS / 32;             // stage 2: 16-row MMA tiles per warp
   constexpr int kDt = 32 * NT;
   constexpr int kVpr = kDt / 8;  // 16-byte vectors per W tile row
   constexpr int kSlots = 32 / VEC;  // copies per 32-byte neighbour slot
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout lay(h, kk, kDt);
+  const Layout lay(h, kk, kDt, ROWS);
   const unsigned short* infl_s = reinterpret_cast<const unsigned short*>(smem + lay.infl);
   unsigned char* ring = smem + lay.ring;
   __nv_bfloat16* a2 = reinterpret_cast<__nv_bfloat16*>(smem + lay.a2);
@@ -203,8 +217,8 @@ kpconv_fused_kernel(const __nv_bfloat16* __restrict__ nf,
       cp_async16(smem + lay.infl + i * 16, src + i * 16, n);
     }
   };
-  // q / h for q < 16 * 48 as a multiply-shift (exact there)
-  const uint32_t inv_h = (65536u + h - 1) / h;
+  // q / h as a multiply-shift, exact for q * h < 2^22 (q < 768, h <= 96)
+  const uint32_t inv_h = ((1u << 22) + h - 1) / h;
   auto fetch_piece = [&](int s) {
     const int ch0 = (s / kSteps) * kCc;
     const int g = s % kSteps;
@@ -214,7 +228,7 @@ kpconv_fused_kernel(const __nv_bfloat16* __restrict__ nf,
     unsigned char* buf = ring + (s % kRing) * lay.piece;
     for (int i = tid; i < rows * h * slots; i += kThreads) {
       const int q = i / slots, v = i - q * slots;  // slot row q = rr * h + hh
-      const int rr = (int)(((uint32_t)q * inv_h) >> 16);
+      const int rr = (int)(((uint32_t)q * inv_h) >> 22);
       const __nv_bfloat16* src = nf + ((size_t)((rbase + rr) * h + (q - rr * h)) * c + ch0 +
                                        v * (VEC / 2));
       // 16-byte halves of a slot swap every 4 rows: conflict-free ldmatrix
@@ -235,9 +249,9 @@ kpconv_fused_kernel(const __nv_bfloat16* __restrict__ nf,
     }
   };
 
-  float acc[2][NT][4];
+  float acc[kMt][NT][4];
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+  for (int m = 0; m < kMt; ++m)
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
@@ -254,10 +268,10 @@ kpconv_fused_kernel(const __nv_bfloat16* __restrict__ nf,
     cp_async_commit();
   }
 
-  // the influence fragments of this warp's rows (two per piece, kSteps
+  // the influence fragments of this warp's rows (kSub per piece, kSteps
   // pieces per chunk), built from shared memory in the first chunk and
   // kept in registers for the others
-  uint32_t af[kSteps][2][kMaxHs][4];
+  uint32_t af[kSteps][kSub][kMaxHs][4];
   const int wm = warp & 1, wn = warp >> 1;
   for (int chunk = 0; chunk < nchunks; ++chunk) {
 #pragma unroll
@@ -272,9 +286,9 @@ kpconv_fused_kernel(const __nv_bfloat16* __restrict__ nf,
     cp_async_wait<kRing - 1>();  // piece s (and W of this chunk by its end)
     __syncthreads();
 
-    // stage 1: this warp's two rows of the piece
+    // stage 1: this warp's rows of the piece
 #pragma unroll
-    for (int sub = 0; sub < 2; ++sub) {
+    for (int sub = 0; sub < kSub; ++sub) {
       const int rr = warp + sub * kWarps;
       const int rb = g * kPieceRows + rr;
       if (rb < nrows) {
@@ -326,10 +340,10 @@ kpconv_fused_kernel(const __nv_bfloat16* __restrict__ nf,
 #pragma unroll 1
       for (int rep = 0; rep < KPCONV_STAGE2_REPS; ++rep)
       for (int j = 0; j < kk; ++j) {
-        uint32_t a[2][4];
+        uint32_t a[kMt][4];
 #pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          const int row = wm * 32 + m * 16 + (lane & 15);
+        for (int m = 0; m < kMt; ++m) {
+          const int row = wm * (kRows / 2) + m * 16 + (lane & 15);
           ldsm_x4(a2b + (row * lay.a2s + j * kCc + (lane >> 4) * 8) * 2, a[m]);
         }
         const int q = j * kCc + ((lane >> 3) & 1) * 8 + (lane & 7);
@@ -338,7 +352,7 @@ kpconv_fused_kernel(const __nv_bfloat16* __restrict__ nf,
           const int v = wn;
           ldsm_x2_t(wsb + (q * kVpr + (v ^ w_swz(q, kVpr))) * 16, b0, b1);
 #pragma unroll
-          for (int m = 0; m < 2; ++m) mma16816(acc[m][0], a[m], b0, b1);
+          for (int m = 0; m < kMt; ++m) mma16816(acc[m][0], a[m], b0, b1);
         } else {
 #pragma unroll
           for (int np = 0; np < NT / 2; ++np) {
@@ -346,7 +360,7 @@ kpconv_fused_kernel(const __nv_bfloat16* __restrict__ nf,
             uint32_t b[4];
             ldsm_x4_t(wsb + (q * kVpr + (v ^ w_swz(q, kVpr))) * 16, b);
 #pragma unroll
-            for (int m = 0; m < 2; ++m) {
+            for (int m = 0; m < kMt; ++m) {
               mma16816(acc[m][2 * np], a[m], b[0], b[1]);
               mma16816(acc[m][2 * np + 1], a[m], b[2], b[3]);
             }
@@ -360,11 +374,11 @@ kpconv_fused_kernel(const __nv_bfloat16* __restrict__ nf,
   cp_async_wait<0>();
 
 #pragma unroll
-  for (int m = 0; m < 2; ++m) {
+  for (int m = 0; m < kMt; ++m) {
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       const int col = d0 + (wn * NT + n) * 8 + 2 * t4;
-      const long long row = r0 + wm * 32 + m * 16 + gid;
+      const long long row = r0 + wm * (kRows / 2) + m * 16 + gid;
       if (col < d) {
         if (row < num_rows)
           *reinterpret_cast<float2*>(out + row * d + col) = make_float2(acc[m][n][0], acc[m][n][1]);
@@ -376,28 +390,35 @@ kpconv_fused_kernel(const __nv_bfloat16* __restrict__ nf,
   }
 }
 
-template <int VEC, int NT>
+template <int VEC, int NT, int ROWS>
 int launch(const void* nf, const void* infl, const void* w, float* out, int num_rows, int h,
            int kk, int c, int d, cudaStream_t stream) {
-  const Layout lay(h, kk, 32 * NT);
-  if (lay.total > 227 * 1024) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(kpconv_fused_kernel<VEC, NT>,
+  const Layout lay(h, kk, 32 * NT, ROWS);
+  if (lay.total > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(kpconv_fused_kernel<VEC, NT, ROWS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)lay.total);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((d + 32 * NT - 1) / (32 * NT), (num_rows + kRows - 1) / kRows);
-  kpconv_fused_kernel<VEC, NT><<<grid, kThreads, lay.total, stream>>>(
+  const dim3 grid((d + 32 * NT - 1) / (32 * NT), (num_rows + ROWS - 1) / ROWS);
+  kpconv_fused_kernel<VEC, NT, ROWS><<<grid, kThreads, lay.total, stream>>>(
       static_cast<const __nv_bfloat16*>(nf), static_cast<const __nv_bfloat16*>(infl),
       static_cast<const __nv_bfloat16*>(w), out, num_rows, h, kk, c, d);
   return (int)cudaGetLastError();
 }
 
-template <int VEC>
+template <int VEC, int ROWS>
 int launch_nt(int nt, const void* nf, const void* infl, const void* w, float* out,
               int num_rows, int h, int kk, int c, int d, cudaStream_t stream) {
-  if (nt == 1) return launch<VEC, 1>(nf, infl, w, out, num_rows, h, kk, c, d, stream);
-  if (nt == 2) return launch<VEC, 2>(nf, infl, w, out, num_rows, h, kk, c, d, stream);
-  return launch<VEC, 4>(nf, infl, w, out, num_rows, h, kk, c, d, stream);
+  if (nt == 1) return launch<VEC, 1, ROWS>(nf, infl, w, out, num_rows, h, kk, c, d, stream);
+  if (nt == 2) return launch<VEC, 2, ROWS>(nf, infl, w, out, num_rows, h, kk, c, d, stream);
+  return launch<VEC, 4, ROWS>(nf, infl, w, out, num_rows, h, kk, c, d, stream);
+}
+
+template <int ROWS>
+int launch_vec(int nt, const void* nf, const void* infl, const void* w, float* out,
+               int num_rows, int h, int kk, int c, int d, cudaStream_t stream) {
+  return c % 8 ? launch_nt<8, ROWS>(nt, nf, infl, w, out, num_rows, h, kk, c, d, stream)
+               : launch_nt<16, ROWS>(nt, nf, infl, w, out, num_rows, h, kk, c, d, stream);
 }
 
 }  // namespace
@@ -418,16 +439,19 @@ extern "C" int gaussreg_kpconv_fused(const void* nf, const void* infl, const voi
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
+  // rows per block: 64 where its neighbour steps and tiles fit, else 32
+  const int rows = h <= 16 * max_hsteps(64) && Layout(h, kk, 32, 64).total <= kMaxSmem ? 64 : 32;
+  if (Layout(h, kk, 32, rows).total > kMaxSmem) return (int)cudaErrorInvalidValue;
   // D_tile: 32, 64 or 128 columns (each further tile repeats stage 1 on
   // nf from L2); narrower where the tile would not fit in shared memory,
   // and halved once where the grid of one block per SM then still fits in
   // one wave
-  const int row_blocks = (num_rows + kRows - 1) / kRows;
+  const int row_blocks = (num_rows + rows - 1) / rows;
   auto blocks = [&](int t) { return (long long)row_blocks * ((d + 32 * t - 1) / (32 * t)); };
   int nt = d <= 32 ? 1 : (d <= 64 ? 2 : 4);
-  while (nt > 1 && Layout(h, kk, 32 * nt).total > 227 * 1024) nt /= 2;
+  while (nt > 1 && Layout(h, kk, 32 * nt, rows).total > kMaxSmem) nt /= 2;
   if (KPCONV_HALVE_NT && nt > 1 && blocks(nt / 2) <= sms) nt /= 2;
   cudaStream_t s = (cudaStream_t)stream;
-  return c % 8 ? launch_nt<8>(nt, nf, infl, w, out, num_rows, h, kk, c, d, s)
-               : launch_nt<16>(nt, nf, infl, w, out, num_rows, h, kk, c, d, s);
+  return rows == 64 ? launch_vec<64>(nt, nf, infl, w, out, num_rows, h, kk, c, d, s)
+                    : launch_vec<32>(nt, nf, infl, w, out, num_rows, h, kk, c, d, s);
 }

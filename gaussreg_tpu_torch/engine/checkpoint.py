@@ -11,6 +11,8 @@ model's state_dict:
   as does the RPE attention's `proj_p_kernel`;
 - GroupNorm / LayerNorm `scale` becomes `weight`;
 - `ot_alpha` maps to the model's `ot_alpha`.
+
+`flax_from_params` maps back (engine/torch_import.py fills that tree).
 """
 
 from __future__ import annotations
@@ -216,6 +218,62 @@ def params_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
     sd["ot_alpha"] = np.asarray(tree["ot_alpha"], np.float32).reshape(())
     return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in sd.items()}
+
+
+def flax_from_params(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of `params_from_flax`: the port model's state_dict as the
+    JAX package's parameter tree (the dict under "params"), numpy leaves."""
+    sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
+
+    def dense(prefix):
+        return {"kernel": sd[f"{prefix}.weight"].T, "bias": sd[f"{prefix}.bias"]}
+
+    def norm(prefix):
+        return {"scale": sd[f"{prefix}.weight"], "bias": sd[f"{prefix}.bias"]}
+
+    def unary(prefix):
+        return {"Dense_0": dense(f"{prefix}.linear"), "MaskedGroupNorm_0": norm(f"{prefix}.norm")}
+
+    def kpconv(prefix):
+        return {name: sd[f"{prefix}.{name}"] for name in ("weights", "kernel_points", "bias")}
+
+    def residual(prefix):
+        tree = {"KPConv_0": kpconv(f"{prefix}.conv"), "MaskedGroupNorm_0": norm(f"{prefix}.norm")}
+        present = [n for n in ("unary1", "unary2", "unary_shortcut")
+                   if f"{prefix}.{n}.linear.weight" in sd]  # flax's creation order
+        for i, name in enumerate(present):
+            tree[f"UnaryBlock_{i}"] = unary(f"{prefix}.{name}")
+        return tree
+
+    bb = {"ConvBlock_0": {"KPConv_0": kpconv("backbone.encoder1_1.conv"),
+                          "MaskedGroupNorm_0": norm("backbone.encoder1_1.norm")},
+          "UnaryBlock_0": unary("backbone.decoder4"), "UnaryBlock_1": unary("backbone.decoder3"),
+          "Dense_0": dense("backbone.decoder2")}
+    for i, name in enumerate(_ENCODER_BLOCKS):
+        bb[f"CheckpointResidualBlock_{i}"] = residual(f"backbone.{name}")
+
+    proj_a = dense("transformer.embedding.proj_a")
+    tr = {"embedding": {"proj_d": dense("transformer.embedding.proj_d"),
+                        "proj_a_kernel": proj_a["kernel"], "proj_a_bias": proj_a["bias"]},
+          "in_proj": dense("transformer.in_proj"), "out_proj": dense("transformer.out_proj"),
+          "transformer": {}}
+    index = 0
+    while f"transformer.transformer.layers.{index}.linear.weight" in sd:
+        prefix = f"transformer.transformer.layers.{index}"
+        rpe = f"{prefix}.attention.proj_p_kernel" in sd
+        att = {p: dense(f"{prefix}.attention.{p}") for p in ("proj_q", "proj_k", "proj_v")}
+        if rpe:
+            att["proj_p_kernel"] = sd[f"{prefix}.attention.proj_p_kernel"]
+            att["proj_p_bias"] = sd[f"{prefix}.attention.proj_p_bias"]
+        tr["transformer"][f"layer_{index}_{'self' if rpe else 'cross'}"] = {
+            "RPEMultiHeadAttention_0" if rpe else "MultiHeadAttention_0": att,
+            "Dense_0": dense(f"{prefix}.linear"), "LayerNorm_0": norm(f"{prefix}.norm"),
+            "AttentionOutput_0": {"Dense_0": dense(f"{prefix}.output.expand"),
+                                  "Dense_1": dense(f"{prefix}.output.squeeze"),
+                                  "LayerNorm_0": norm(f"{prefix}.output.norm")},
+        }
+        index += 1
+    return {"backbone": bb, "transformer": tr, "ot_alpha": sd["ot_alpha"]}
 
 
 def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:

@@ -1,7 +1,8 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 Each source under gaussreg_tpu_torch/csrc/ is compiled by nvcc for sm_90a
-into its own shared library with a plain C interface, loaded with ctypes:
+into its own shared library (one library for all the entry points of a
+source) with a plain C interface, loaded with ctypes:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o _build/<stem>-<hash>.so csrc/<stem>.cu
@@ -108,11 +109,12 @@ def _build(kernels: Sequence[CudaKernel]) -> float:
     Returns the wall seconds the build took; raises on a failed build."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.perf_counter()
-    jobs = []
+    jobs, queued = [], set()
     for k in kernels:
         out = k.lib_path
-        if os.path.exists(out):
+        if os.path.exists(out) or out in queued:  # kernels of one source share its library
             continue
+        queued.add(out)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         proc = subprocess.Popen(
@@ -133,8 +135,9 @@ def _build(kernels: Sequence[CudaKernel]) -> float:
 
 
 def build_all() -> float:
-    """Build every registered kernel (importing the modules that define
-    them first). Returns the wall seconds nvcc took."""
+    """Build every registered kernel (importing the modules of the path's
+    kernels first; a caller that also needs other kernels imports their
+    modules before the call). Returns the wall seconds nvcc took."""
     from gaussreg_tpu_torch.gs.rasterizer import accumulate, kernels  # noqa: F401
     from gaussreg_tpu_torch.ops import fused_select, kpconv_kernel, select_k  # noqa: F401
 

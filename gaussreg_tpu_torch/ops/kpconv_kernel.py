@@ -30,7 +30,9 @@ KERNEL = _cuda.register(
 )
 
 MAX_KERNEL_POINTS = 16
-MAX_NEIGHBORS = 44  # the kernel's shared memory at K = 16 (csrc/kpconv_fused.cu)
+# csrc/kpconv_fused.cu: 64 rows per block up to 48 neighbour slots (44 at
+# K = 16), 32 past that (the reference checkpoint's limits, 89 at level 0)
+MAX_NEIGHBORS = 96
 
 
 def reference_apply(nf: torch.Tensor, infl: torch.Tensor, weights: torch.Tensor):

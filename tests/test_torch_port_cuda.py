@@ -69,7 +69,7 @@ def test_kpconv_kernel_matches_plain(cuda, c, d):
 )
 def test_kpconv_kernel_shapes(cuda, rows, h, k):
     """Neighbour counts that are not a multiple of 16 (1, 17, 35) and the
-    largest the kernel takes (44, with sixteen kernel points), one or
+    largest at 64 rows per block (44, with sixteen kernel points), one or
     sixteen kernel points, fewer than 64 rows and row counts that are not a
     multiple of 64, at a narrow (C = 4) and a wide (C = D = 256) layer."""
     from gaussreg_tpu_torch.ops import kpconv_kernel as kk
@@ -85,6 +85,31 @@ def test_kpconv_kernel_shapes(cuda, rows, h, k):
         assert kk.KERNEL.launches == before + 1
         ref = kk.reference_apply(nf, infl, w)
         assert (out - ref).abs().max().item() <= 4e-3 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("rows,h,k", [(500, 45, 15), (333, 89, 15), (97, 96, 16), (40, 60, 1)])
+def test_kpconv_kernel_wide_neighbourhoods(cuda, rows, h, k):
+    """Past 48 neighbour slots (the reference checkpoint's limits reach 89 at
+    level 0) the kernel takes blocks of 32 rows, still in one launch that
+    sums all slots in f32 and rounds once: held to the same 4e-3 as the
+    other shapes. Past 96 slots the wrapper raises."""
+    from gaussreg_tpu_torch.ops import kpconv_kernel as kk
+
+    gen = torch.Generator(device=cuda).manual_seed(rows + h + k)
+    for c, d in ((4, 64), (256, 256)):
+        nf = torch.randn(1, rows, h, c, device=cuda, generator=gen).to(torch.bfloat16)
+        infl = torch.rand(1, rows, h, k, device=cuda, generator=gen).to(torch.bfloat16)
+        w = torch.randn(k, c, d, device=cuda, generator=gen)
+        before = kk.KERNEL.launches
+        out = kk.kpconv_fused_apply(nf, infl, w)
+        torch.cuda.synchronize()
+        assert kk.KERNEL.launches == before + 1
+        ref = kk.reference_apply(nf, infl, w)
+        assert (out - ref).abs().max().item() <= 4e-3 * ref.abs().max().item()
+    nf = torch.zeros(1, 8, kk.MAX_NEIGHBORS + 1, 4, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="H <="):
+        kk.kpconv_fused_apply(nf, nf[..., :1].expand(-1, -1, -1, k), torch.zeros(k, 4, 8,
+                                                                                  device=cuda))
 
 
 @pytest.mark.parametrize("w,k", [(128, 3), (16, 3), (1000, 35)])
@@ -358,3 +383,60 @@ def test_forward_refuses_a_cluster_it_cannot_place(cuda):
         kernels.rasterize_backward(gdata, gid, starts, torch.zeros(3, dtype=torch.int32,
                                    device=cuda), torch.zeros(7, height, width, device=cuda), 4,
                                    height, width, tile, tile)
+
+
+# ---- the probes' kernels (P1, P2) ----
+#
+# P1: every gather equals table[idx] bit for bit. P2: kend equal; rgb and T
+# within 1e-5 for A, C and D (kernel and plain version compute the same
+# alpha, rounding each product and sum of the exponent alike, and sum the
+# prefix and the colours in another order) and within 5e-4 for B (one bf16
+# step of one lg, should the two log1p differ in the last bit).
+
+
+@pytest.mark.parametrize("g,k", [(4096, 128), (1000, 77), (16, 1), (7264, 300)])
+def test_probe_gathers_are_exact(cuda, g, k):
+    from gaussreg_tpu_torch.tools import probe_vmem_gather as p1
+
+    table, idx = p1.make_inputs(g + k, g=g, k=k, device=cuda)
+    idx[0] = g - 1
+    ref = table[idx.long()]
+    for variant, kernel in p1.KERNELS.items():
+        before = kernel.launches
+        out = p1.gather(variant, table, idx)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        assert torch.equal(out, ref), variant
+        assert torch.equal(p1.PLAIN[variant](table, idx), ref), variant
+
+
+def test_probe_gather_rejects_a_table_past_shared_memory(cuda):
+    from gaussreg_tpu_torch.tools import probe_vmem_gather as p1
+
+    table, idx = p1.make_inputs(0, g=8192, k=8, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        p1.gather("shared", table, idx)
+    assert torch.equal(p1.gather("global", table, idx), table[idx.long()])
+
+
+@pytest.mark.parametrize("case", ["blocks", "ragged"])
+def test_probe_composite_cores_match_plain(cuda, case):
+    from gaussreg_tpu_torch.tools import probe_kernels_r5 as p2
+    from test_torch_port_probes import ragged_saturating_blocks
+
+    if case == "blocks":
+        blocks, starts, _ = p2.make_blocks(num_tiles=40, blocks_per_tile=3, seed=2)
+        tiles = 40
+    else:
+        blocks, starts, tiles = ragged_saturating_blocks()
+    blocks, starts = torch.from_numpy(blocks).to(cuda), torch.from_numpy(starts).to(cuda)
+    limits = {"A": 1e-5, "B": 5e-4, "C": 1e-5, "D": 1e-5}
+    for core, kernel in p2.KERNELS.items():
+        before = kernel.launches
+        out = p2.run_fwd(blocks, starts, core, tiles)
+        ref = p2.composite_plain(blocks, starts, core, tiles)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        assert torch.equal(out[:, 5], ref[:, 5]), core
+        err = (out[:, :5] - ref[:, :5]).abs().max().item()
+        assert err <= limits[core], (core, err)
