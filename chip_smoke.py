@@ -12,8 +12,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    random_pair(cfg, 20_000_000 + i) through api.coarse_register_clouds;
    every pair must have RR = 1 (RMSE < 0.2) and RRE < 5 degrees. Kernel
    launch counts are zeroed just before and read just after: 13 window
-   selections (K1), 14 KPConv aggregations (K2) and 2 k-min selections
-   (K3) per pair.
+   selections (K1), 14 KPConv aggregations (K2) and one fused mutual-top-k
+   threshold launch (K3's `kth_largest_rows_cols`) per pair, and no launch
+   of the generic k-min selection (`select_min_k`).
 3. .ply entry point: api.register_gs_pair(fine=False) on two .ply files of
    one synthetic scene written by the port's gs/ply.py writer (counts
    zeroed and read around it too); the transform must be finite and its
@@ -29,6 +30,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the plain version, one PyTorch library call for the same function, and
    the least time the card could take (bytes at 3.35 TB/s or operations at
    the inputs' peak rate).
+   K3's fused entry (one call per pair) is held against its plain version
+   bit for bit and timed beside torch.topk on both axes, beside the route
+   the path took before it (negation, transpose copy and two select_min_k
+   launches) and beside its bound, once on the captured block (left in L2)
+   and once on six rotating copies of it (101 MB, out of L2). The generic
+   select_min_k, no longer on the path, is launched on that route's two
+   inputs with its count read around that run, held against its plain
+   version and timed (`k3_phase`).
+   k2 backward: the backward of each of one pair's 14 captured K2 calls
+   (the VJP of the plain einsums) against reference_apply's own autograd
+   and timed, then a grad-enabled backbone forward and backward at
+   make_tiny_cfg() from the same seeded weights on the card through K2,
+   on the card through K2's plain version, and on the CPU
+   (`k2_backward_phase`).
 5. profile: one pair under torch.profiler, device time by kernel and the
    device's busy share of the wall time.
 6. fine registration at full width: a synthetic scene of 200 000 gaussians
@@ -84,7 +99,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 Prints the build seconds, the card's name and power limit, a line per
 pair, a line per kernel call, the profiles, a {"kernels": [...]} JSON line
-listing all thirteen kernels (K1-K6, P1's three, P2's four), the card's
+listing all fourteen kernels (K1, K2, K3's two entries, K4-K6, P1's three,
+P2's four; K2's entry also carries its backward's time), the card's
 name and power limit again, and as the last line {"ok": true, "device":
 {...}}. Imports nothing of JAX.
 """
@@ -167,6 +183,19 @@ class Capture:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.orig)
+
+
+class Swap(Capture):
+    """Replace a function looked up as a module attribute while inside."""
+
+    def __init__(self, module, name, replacement):
+        super().__init__(module, name)
+        self.replacement = replacement
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.replacement)
+        return self
 
 
 def measure(name, calls, kernel, plain, compare, library, cost, kind, plain_reps: int = 5):
@@ -257,6 +286,237 @@ def select_topk(x, k):
 def select_cost(x, k):
     r, w = x.shape
     return r * w * 4 + r * k * 8, float(r * w * k), f"R={r} W={w} k={k}"
+
+
+def exact_thresholds(a, b, _args):
+    """K3's fused entry: both thresholds equal bit for bit."""
+    import torch
+
+    torch.cuda.synchronize()
+    bad = sum(int((x.view(torch.int32) != y.view(torch.int32)).sum()) for x, y in zip(a, b))
+    if bad:
+        raise AssertionError(f"kth_largest_rows_cols differs from its plain version in {bad} "
+                             "thresholds")
+    return 0.0
+
+
+def thresholds_topk(s, k):
+    import torch
+
+    return lambda: (torch.topk(s, k, dim=2).values[..., k - 1],
+                    torch.topk(s, k, dim=1).values[:, k - 1])
+
+
+def thresholds_cost(s, k):
+    """Each score read once, each threshold written once; one comparison
+    per score and pass."""
+    p, w, _ = s.shape
+    return p * w * w * 4 + 2 * p * w * 4, 2.0 * p * w * w, f"P={p} W={w} k={k}"
+
+
+def kernel_entry(name, src, replaces, launches, tot, kind):
+    """One entry of the {"kernels": [...]} line from `measure`'s totals."""
+    b_ms, b_by = bound(tot["bytes"], tot["ops"], kind)
+    lib_txt = "none" if tot["library_ms"] is None else f"{tot['library_ms']:.4f} ms"
+    log(f"{name}: kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, library "
+        f"{lib_txt}, bound {b_ms:.4f} ms ({b_by})")
+    return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches, "max_abs_err": tot["err"], "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": tot["library_ms"]}
+
+
+def k3_phase(calls, launches):
+    """K3 on one pair's captured `kth_largest_rows_cols` call. The fused
+    entry against its plain version (bit for bit), torch.topk on both axes
+    and its bound, by `measure`. Under the same clock the route the path
+    took before it, `_rowwise_kth_largest` on the rows and on the transpose
+    (negation, transpose copy, two select_min_k launches), which must give
+    the same bits; both timed on the captured block (16.8 MB at make_cfg(),
+    left in the 50 MB L2 by the graph's replays) and on six rotating copies
+    (each call's input last touched five calls earlier: out of L2). Then
+    the generic select_min_k, on no path since the fused entry: launched
+    once on that route's two inputs with its count read around that run,
+    held against its plain version and timed. Returns the two entries."""
+    import torch
+    from gaussreg_tpu_torch.models import matching as matching_mod
+    from gaussreg_tpu_torch.ops import select_k
+    from gaussreg_tpu_torch.utils.timing import slope
+
+    rows, tot = measure("kth_largest_rows_cols", calls, select_k.kth_largest_rows_cols,
+                        select_k.kth_largest_rows_cols_plain, exact_thresholds,
+                        thresholds_topk, thresholds_cost, "f32")
+    for row in rows:
+        log(row)
+    (s, k), _ = calls[-1]
+    p, w, _ = s.shape
+
+    def route(x):
+        return (matching_mod._rowwise_kth_largest(x.reshape(p * w, w), k),
+                matching_mod._rowwise_kth_largest(x.transpose(1, 2).reshape(p * w, w), k))
+
+    exact_thresholds([t.reshape(-1) for t in select_k.kth_largest_rows_cols(s, k)],
+                     route(s), None)
+    copies = [s.clone() for _ in range(6)]
+    fused = select_k.kth_largest_rows_cols
+    times = {
+        "route_ms": graph_ms(lambda: route(s)),
+        "cold_ms": slope(lambda i: fused(copies[i % 6], k), 8, 40) * 1e3,
+        "route_cold_ms": slope(lambda i: route(copies[i % 6]), 8, 40) * 1e3,
+    }
+    del copies
+    log(f"kth_largest_rows_cols: per pair, L2-resident: fused {tot['ms']:.4f} ms, the unfused "
+        f"route {times['route_ms']:.4f} ms, torch.topk {tot['library_ms']:.4f} ms; out of L2 "
+        f"(6 rotating copies): fused {times['cold_ms']:.4f} ms, the unfused route "
+        f"{times['route_cold_ms']:.4f} ms")
+    fused_entry = kernel_entry("kth_largest_rows_cols", "gaussreg_tpu_torch/csrc/select_k.cu",
+                               "gaussreg_tpu/ops/select_k.py:88",
+                               launches["kth_largest_rows_cols"], tot, "f32")
+    fused_entry.update(times)
+
+    gen_calls = [((-s.reshape(p * w, w), k), {}),
+                 ((-s.transpose(1, 2).reshape(p * w, w), k), {})]
+    before = select_k.KERNEL.launches
+    for (x, kk), _ in gen_calls:
+        select_k.select_min_k(x, kk)
+    gen_launches = select_k.KERNEL.launches - before
+    rows, tot = measure("select_min_k", gen_calls, select_k.select_min_k,
+                        select_k.select_min_k_plain, exact, select_topk, select_cost, "f32")
+    for row in rows:
+        log(row)
+    gen_entry = kernel_entry("select_min_k", "gaussreg_tpu_torch/csrc/select_k.cu",
+                             "gaussreg_tpu/ops/select_k.py:88", gen_launches, tot, "f32")
+    return [gen_entry, fused_entry]
+
+
+def random_params_(module, seed):
+    """Overwrite a module's trainable parameters from a seeded generator:
+    matrices and KPConv kernels normal with variance 1 / fan-in, norm
+    scales 1 + N(0, 0.01), biases N(0, 0.01)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, prm in module.named_parameters():
+            if not prm.requires_grad:
+                continue
+            noise = torch.randn(prm.shape, generator=gen)
+            if prm.dim() <= 1:
+                prm.copy_((1.0 if name.endswith("weight") else 0.0) + 0.1 * noise)
+            else:
+                fan_in = prm.shape[-1] if prm.dim() == 2 else prm.shape[0] * prm.shape[1]
+                prm.copy_(noise / math.sqrt(fan_in))
+
+
+def k2_backward_phase(calls, dev):
+    """k2 backward. (1) On each of one pair's 14 captured K2 calls, the
+    gradients of (out * g).sum() through the kernel path against those of
+    reference_apply's own autograd on the same inputs: within 1e-6 of each
+    gradient's max (equal bit for bit is expected: the backward reads the
+    saved inputs and g only); the backward (`reference_vjp`, all three
+    gradients) timed by graph_ms. (2) A grad-enabled KPConv-FPN forward and
+    backward at make_tiny_cfg() on one pair's pyramid (built on the host),
+    from the same seeded weights three times: on the card through K2, on
+    the card with K2's plain version in its place (`Swap`), and on the CPU.
+    The card's forward launches K2 14 times and every parameter gets a
+    finite gradient. Each KPConv weight's gradient through K2 lies within
+    2e-2 of the max of the plain version's on the card (the two round the
+    aggregation's f32 sums to bf16 in another order; the CPU, rounding in
+    float64 instead, moves them by up to 1.7e-2). Against the CPU each
+    lies within half its norm (relative Frobenius): at these random
+    weights the gradients are chaotic in the last bits of the forward
+    (every bf16 rounding that flips and every LeakyReLU pre-activation
+    that crosses zero reroutes a share of the gradient), and on the card
+    every f32 sum runs in another order. The run measures that chaos on
+    the CPU, by moving every weight by 1e-6 of itself, and logs
+    it beside the card's distance; a cut graph (fault F1) lies 1.0 away.
+    Returns the    backward's ms per pair."""
+    import copy
+
+    import torch
+    from gaussreg_tpu_torch.config import make_tiny_cfg
+    from gaussreg_tpu_torch.data.pipeline import Pyramid, make_pair_batch
+    from gaussreg_tpu_torch.data.synthetic import random_pair
+    from gaussreg_tpu_torch.models import kpconv as kpconv_mod
+    from gaussreg_tpu_torch.models.registration import create_model
+    from gaussreg_tpu_torch.ops import kpconv_kernel as kk
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    worst, unequal, bwd_ms = 0.0, 0, 0.0
+    for (nf, infl, w), _ in calls:
+        g = torch.randn(nf.shape[:2] + (w.shape[-1],), device=dev, generator=gen)
+
+        def grads(fn):
+            inputs = [t.detach().clone().requires_grad_() for t in (nf, infl, w)]
+            out = fn(*inputs)
+            if out.grad_fn is None:
+                raise AssertionError(f"{fn.__name__} returned no grad_fn")
+            return torch.autograd.grad((out * g).sum(), inputs)
+
+        for x, y in zip(grads(kk.kpconv_fused_apply), grads(kk.reference_apply)):
+            err = (x.float() - y.float()).abs().max().item()
+            if not (x.dtype == y.dtype and err <= 1e-6 * y.float().abs().max().item()):
+                raise AssertionError(f"K2 backward: {x.dtype} gradient {err} from the plain "
+                                     f"autograd's {y.dtype}")
+            worst, unequal = max(worst, err), unequal + int((x != y).sum())
+        bwd_ms += graph_ms(lambda: kk.reference_vjp(nf, infl, w, g))
+    log(f"k2 backward: {len(calls)} captured calls, gradients through the kernel path against "
+        f"the plain autograd: max abs diff {worst:.3e}, {unequal} elements unequal; the "
+        f"backward (VJP of the plain einsums, three gradients) {bwd_ms:.4f} ms per pair")
+
+    cfg = make_tiny_cfg()
+    rp, rf, sp, sf, m = random_pair(cfg, 20_000_200)
+    batch = make_pair_batch(cfg, rp, rf, sp, sf, m, device="cpu")
+    bb_cpu = create_model(cfg, "cpu").backbone
+    random_params_(bb_cpu, 0)
+    bb_dev = copy.deepcopy(bb_cpu).to(dev)
+    to = lambda f, d: tuple(t.to(d) for t in f) if isinstance(f, tuple) else f.to(d)
+
+    def backward(bb, pyramid, feats):
+        ff, fc = bb(feats, pyramid)
+        gg = torch.Generator().manual_seed(1)
+        gf, gc = (torch.randn(t.shape, generator=gg).to(t.device) for t in (ff, fc))
+        ((ff * gf).sum() + (fc * gc).sum()).backward()
+        return {n: prm.grad for n, prm in bb.named_parameters() if prm.requires_grad}
+
+    pyr_dev = Pyramid(*[to(f, dev) for f in batch.pyramid])
+    before = kk.KERNEL.launches
+    g_dev = backward(bb_dev, pyr_dev, batch.features.to(dev))
+    torch.cuda.synchronize()
+    launched = kk.KERNEL.launches - before
+    bad = [n for n, gr in g_dev.items() if gr is None or not bool(torch.isfinite(gr).all())]
+    if launched != 14 or bad:
+        raise AssertionError(f"backbone backward on the card: {launched} K2 launches, no or "
+                             f"non-finite gradient for {bad}")
+    bb_dev.zero_grad(set_to_none=True)
+    with Swap(kpconv_mod, "kpconv_fused_apply", kk.reference_apply):
+        g_plain = backward(bb_dev, pyr_dev, batch.features.to(dev))
+    g_cpu = backward(bb_cpu, batch.pyramid, batch.features)
+    bb_moved, gen = copy.deepcopy(bb_cpu), torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for prm in bb_moved.parameters():
+            prm.mul_(1.0 + 1e-6 * torch.randn(prm.shape, generator=gen))
+    g_moved = backward(bb_moved, batch.pyramid, batch.features)
+    names = [n for n in g_dev if n.endswith(".weights")]
+    vs_plain = {n: ((g_dev[n] - g_plain[n]).abs().max() / g_plain[n].abs().max()).item()
+                for n in names}
+    rel_norm = lambda a, b: ((a.cpu() - b).norm() / b.norm()).item()
+    vs_cpu = {n: rel_norm(g_dev[n], g_cpu[n]) for n in names}
+    plain_vs_cpu = max(rel_norm(g_plain[n], g_cpu[n]) for n in names)
+    moved_vs_cpu = max(rel_norm(g_moved[n], g_cpu[n]) for n in names)
+    log(f"k2 backward: backbone at make_tiny_cfg() widths, {len(g_dev)} parameters with finite "
+        f"gradients on the card ({launched} K2 launches in its forward); {len(names)} KPConv "
+        f"weights' gradients through K2 against the plain version's on the card: worst "
+        f"{max(vs_plain.values()):.3e} of the max ({max(vs_plain, key=vs_plain.get)}); "
+        f"against the CPU: worst {max(vs_cpu.values()):.3e} of the norm "
+        f"({max(vs_cpu, key=vs_cpu.get)}; the plain version's on the card: worst "
+        f"{plain_vs_cpu:.3e}; the CPU's own with the weights moved by 1e-6 of themselves: "
+        f"worst {moved_vs_cpu:.3e})")
+    if not (len(names) == 14 and max(vs_plain.values()) <= 2e-2
+            and max(vs_cpu.values()) <= 0.5):
+        raise AssertionError(f"KPConv weight gradients: against the plain version {vs_plain}, "
+                             f"against the CPU {vs_cpu}")
+    return bwd_ms
 
 
 # f32 operations per pair and pixel, counted from the kernels' sources
@@ -943,7 +1203,7 @@ def main() -> int:
         isotropic_transform_error,
     )
     from gaussreg_tpu_torch.models.registration import create_model
-    from gaussreg_tpu_torch.ops import fused_select, kpconv_kernel, select_k
+    from gaussreg_tpu_torch.ops import fused_select, kpconv_kernel
     from gaussreg_tpu_torch.ops import neighbors as neighbors_mod
 
     # 1. build (the path's kernels and the probes' of phase 9)
@@ -971,7 +1231,8 @@ def main() -> int:
         t_data = time.perf_counter()
         pairs.append((seed, random_pair(cfg, seed)))
         log(f"data: pair {seed} generated on the host in {time.perf_counter() - t_data:.2f} s")
-    per_pair = {"window_select_idx": 13, "kpconv_fused_apply": 14, "select_min_k": 2}
+    per_pair = {"window_select_idx": 13, "kpconv_fused_apply": 14, "kth_largest_rows_cols": 1,
+                "select_min_k": 0}
     _cuda.reset_launch_counts()
     results = []
     t_all = time.perf_counter()
@@ -1024,7 +1285,7 @@ def main() -> int:
     seed, (rp, rf, sp, sf, m) = pairs[-1]
     with Capture(neighbors_mod, "window_select_idx") as c1, \
             Capture(kpconv_mod, "kpconv_fused_apply") as c2, \
-            Capture(matching_mod, "select_min_k") as c3:
+            Capture(matching_mod, "kth_largest_rows_cols") as c3:
         api.coarse_register_clouds(cfg, model, rp, rf, sp, sf, seed=0, device=dev)
     torch.cuda.synchronize()
     kernels = []
@@ -1035,23 +1296,14 @@ def main() -> int:
         ("kpconv_fused_apply", c2.calls, kpconv_kernel.kpconv_fused_apply,
          kpconv_kernel.reference_apply, within_bf16_step, kpconv_einsums, kpconv_cost, "bf16",
          "gaussreg_tpu_torch/csrc/kpconv_fused.cu", "gaussreg_tpu/ops/kpconv_kernel.py:97"),
-        ("select_min_k", c3.calls, select_k.select_min_k, select_k.select_min_k_plain, exact,
-         select_topk, select_cost, "f32",
-         "gaussreg_tpu_torch/csrc/select_k.cu", "gaussreg_tpu/ops/select_k.py:88"),
     ):
         rows, tot = measure(name, calls, kernel, plain, compare, library, cost, kind)
         for row in rows:
             log(row)
-        b_ms, b_by = bound(tot["bytes"], tot["ops"], kind)
-        log(f"{name}: {len(calls)} calls per pair, kernel {tot['ms']:.3f} ms, plain "
-            f"{tot['plain_ms']:.3f} ms, library {tot['library_ms']:.3f} ms, bound {b_ms:.3f} ms "
-            f"({b_by})")
-        kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": main_counts[name], "max_abs_err": tot["err"],
-            "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": tot["library_ms"],
-        })
+        log(f"{name}: {len(calls)} calls per pair")
+        kernels.append(kernel_entry(name, src, replaces, main_counts[name], tot, kind))
+    kernels += k3_phase(c3.calls, main_counts)
+    kernels[1]["backward_ms"] = k2_backward_phase(c2.calls, dev)
     profile_pair(cfg, model, pairs[-1][1], dev)
 
     # 6. fine registration at full width, launches counted

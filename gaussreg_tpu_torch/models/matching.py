@@ -2,8 +2,9 @@
 and mask-native (port of the eval-path parts of gaussreg_tpu/models/matching.py).
 
 Every top-k here is a stable sort, which keeps lax.top_k's smaller-index
-tie order. The mutual-top-k thresholds go through `select_min_k` (the CUDA
-kernel K3 on CUDA tensors).
+tie order. The mutual-top-k thresholds of a pair come from one
+`kth_largest_rows_cols` call (K3's fused CUDA kernel on CUDA tensors);
+`_rowwise_kth_largest` serves other callers through `select_min_k`.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 
 from gaussreg_tpu_torch.ops.pairwise import pairwise_sq_dist
 from gaussreg_tpu_torch.ops.procrustes import weighted_procrustes
-from gaussreg_tpu_torch.ops.select_k import select_min_k
+from gaussreg_tpu_torch.ops.select_k import kth_largest_rows_cols, select_min_k
 from gaussreg_tpu_torch.ops.transforms import apply_transform
 
 
@@ -93,10 +94,9 @@ def local_to_global_registration(
     scores = torch.exp(matching_scores)
     mask_mat = ref_knn_masks[:, :, None] & src_knn_masks[:, None, :]
 
-    ref_sel = scores >= _rowwise_kth_largest(scores.reshape(p * kk, kk), k).reshape(p, kk, 1)
-    src_sel = scores >= _rowwise_kth_largest(
-        scores.transpose(1, 2).reshape(p * kk, kk), k
-    ).reshape(p, 1, kk)
+    row_thr, col_thr = kth_largest_rows_cols(scores, k)
+    ref_sel = scores >= row_thr.reshape(p, kk, 1)
+    src_sel = scores >= col_thr.reshape(p, 1, kk)
     sel = (ref_sel & src_sel) if mutual else (ref_sel | src_sel)
     corr_mat = sel & (scores > confidence_threshold) & mask_mat
     corr_mat = corr_mat & patch_valid[:, None, None]

@@ -6,8 +6,14 @@ TPU kernel K2).
 tensors and runs `reference_apply` (the plain version) for CPU tensors.
 Numerics of the Pallas kernel and of the JAX einsum pair: bf16 products
 (exact in f32), f32 accumulation over the neighbor slots, the sum rounded
-to bf16, then contracted with the bf16-rounded weights in f32. Forward
-only: the port runs inference.
+to bf16, then contracted with the bf16-rounded weights in f32.
+
+Backward, on both devices: the VJP of `reference_apply` at the saved
+inputs (nf, infl, weights), as the JAX package's `_fused_bwd` is the VJP
+of its einsum pair. It never reads the forward's output. The gradients
+take the inputs' dtypes: bf16 for nf and infl, f32 for weights. There is
+no hand-written backward kernel because the JAX package has no backward
+Pallas kernel either (its backward is XLA's transpose of two einsums).
 """
 
 from __future__ import annotations
@@ -52,26 +58,56 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def reference_vjp(nf, infl, weights, grad_out, needs=(True, True, True)):
+    """The backward: the VJP of `reference_apply` at (nf, infl, weights) for
+    the cotangent `grad_out` (..., D). Returns the three gradients, None
+    where `needs` is False."""
+    inputs = [t.detach().requires_grad_(n) for t, n in zip((nf, infl, weights), needs)]
+    wanted = [t for t, n in zip(inputs, needs) if n]
+    with torch.enable_grad():
+        grads = iter(torch.autograd.grad(reference_apply(*inputs), wanted, grad_out))
+    return tuple(next(grads) if n else None for n in needs)
+
+
+class _KPConvFused(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, nf, infl, weights):
+        ctx.save_for_backward(nf, infl, weights)
+        if nf.device.type == "cpu":
+            return reference_apply(nf, infl, weights)
+        return _launch(nf, infl, weights)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        return reference_vjp(*ctx.saved_tensors, grad_out, ctx.needs_input_grad)
+
+
 def kpconv_fused_apply(nf: torch.Tensor, infl: torch.Tensor, weights: torch.Tensor):
     """out[b,m,d] = sum_{h,k,c} infl[b,m,h,k] nf[b,m,h,c] weights[k,c,d].
 
     nf: (B, M, H, C) bf16 gathered neighbor features (zeros at sentinels).
     infl: (B, M, H, K) bf16 kernel influences.
     weights: (K, C, D) f32, rounded to bf16 for the contraction.
-    Returns (B, M, D) f32."""
+    Returns (B, M, D) f32, differentiable in all three inputs."""
     b, m, h, c = nf.shape
     k = infl.shape[-1]
-    d = weights.shape[-1]
     if infl.shape[:3] != (b, m, h) or weights.shape[:2] != (k, c):
         raise ValueError(
             f"kpconv_fused_apply: shapes {tuple(nf.shape)}, {tuple(infl.shape)}, "
             f"{tuple(weights.shape)} do not agree"
         )
-    if nf.device.type == "cpu":
-        return reference_apply(nf, infl, weights)
-    if k > MAX_KERNEL_POINTS or h > MAX_NEIGHBORS:
+    if nf.device.type != "cpu" and (k > MAX_KERNEL_POINTS or h > MAX_NEIGHBORS):
         raise ValueError(f"kpconv_fused_apply: needs K <= {MAX_KERNEL_POINTS} and H <= "
                          f"{MAX_NEIGHBORS}, got K={k}, H={h}")
+    return _KPConvFused.apply(nf, infl, weights)
+
+
+def _launch(nf: torch.Tensor, infl: torch.Tensor, weights: torch.Tensor):
+    """The CUDA kernel's forward on checked shapes."""
+    b, m, h, c = nf.shape
+    k = infl.shape[-1]
+    d = weights.shape[-1]
     # the kernel copies nf in 8- or 16-byte pieces and W in 16-byte pieces:
     # C a multiple of 4 (the backbone's widths are; others are padded to 8)
     # and D a multiple of 8. Zero channels (features and weights) and zero

@@ -6,8 +6,10 @@ where there is no CUDA card. On a machine with one:
     python -m pytest -q -m cuda tests/test_torch_port_cuda.py
 
 K1 and K3 must equal their plain versions index for index and value for
-value, K6 bit for bit; K2 must lie within 4e-3 of the plain output's max
-magnitude (one bf16 rounding step of a weighted sum, 2^-8 relative).
+value (K3's fused thresholds bit for bit), K6 bit for bit; K2 must lie
+within 4e-3 of the plain output's max magnitude (one bf16 rounding step of
+a weighted sum, 2^-8 relative), and its backward's gradients must equal
+those of the plain version's autograd bit for bit.
 The rasterizer's hand-built tiles come from test_torch_port_raster_state.py
 (which imports no JAX at the top).
 """
@@ -133,6 +135,75 @@ def test_wrappers_reject_bad_input(cuda):
         sk.select_min_k(torch.zeros(4, 8, device=cuda, dtype=torch.float64), 2)
     with pytest.raises(ValueError):
         sk.select_min_k(torch.zeros(4, 8, device=cuda), 9)
+
+
+@pytest.mark.parametrize("w", [16, 64, 128, 192])
+@pytest.mark.parametrize("k", [1, 3, 4])
+@pytest.mark.parametrize("tied", [False, True])
+def test_kth_largest_rows_cols_kernel_matches_plain(cuda, w, k, tied):
+    """K3's fused entry against its plain version (the two select_min_k
+    calls of the unfused path), bit for bit, on random scores and on
+    scores with few distinct values, zeros of both signs included."""
+    from gaussreg_tpu_torch.ops import select_k as sk
+
+    gen = torch.Generator(device=cuda).manual_seed(w * 10 + k)
+    p = 37
+    if tied:
+        s = torch.exp(torch.randint(-20, 5, (p, w, w), device=cuda, generator=gen) / 4.0)
+        s[0, : w // 2] = 0.0
+        s[1, :, ::3] = -0.0
+        s[2] = 1.0
+    else:
+        s = torch.exp(3.0 * torch.randn(p, w, w, device=cuda, generator=gen))
+    before = sk.FUSED_KERNEL.launches
+    rk, ck = sk.kth_largest_rows_cols(s, k)
+    torch.cuda.synchronize()
+    assert sk.FUSED_KERNEL.launches == before + 1
+    rp, cp = sk.kth_largest_rows_cols_plain(s, k)
+    assert torch.equal(rk.view(torch.int32), rp.view(torch.int32))
+    assert torch.equal(ck.view(torch.int32), cp.view(torch.int32))
+
+
+def test_kth_largest_rows_cols_kernel_limits(cuda):
+    from gaussreg_tpu_torch.ops import select_k as sk
+
+    with pytest.raises(ValueError, match="W <= 192"):
+        sk.kth_largest_rows_cols(torch.zeros(2, 193, 193, device=cuda), 3)
+    with pytest.raises(ValueError, match="k <= 4"):
+        sk.kth_largest_rows_cols(torch.zeros(2, 16, 16, device=cuda), 5)
+    with pytest.raises(ValueError):
+        sk.kth_largest_rows_cols(torch.zeros(2, 16, 16, device=cuda, dtype=torch.float64), 3)
+
+
+@pytest.mark.parametrize("rows,h,c,d", [(333, 35, 64, 64), (97, 17, 24, 40), (200, 89, 4, 64),
+                                        (150, 29, 256, 512)])
+def test_kpconv_backward_matches_plain_autograd(cuda, rows, h, c, d):
+    """K2's backward on the card: the gradients of (out * g).sum() through
+    the kernel path equal, bit for bit, those of `reference_apply`'s own
+    autograd on the same CUDA inputs (the backward reads only the saved
+    inputs and g, and runs the same operations)."""
+    from gaussreg_tpu_torch.ops import kpconv_kernel as kk
+
+    gen = torch.Generator(device=cuda).manual_seed(rows + h)
+    k = 15
+    nf = torch.randn(1, rows, h, c, device=cuda, generator=gen).to(torch.bfloat16)
+    infl = torch.rand(1, rows, h, k, device=cuda, generator=gen).to(torch.bfloat16)
+    w = torch.randn(k, c, d, device=cuda, generator=gen)
+    g = torch.randn(1, rows, d, device=cuda, generator=gen)
+
+    def grads(fn):
+        inputs = [t.clone().requires_grad_() for t in (nf, infl, w)]
+        out = fn(*inputs)
+        assert out.grad_fn is not None
+        return torch.autograd.grad((out * g).sum(), inputs)
+
+    before = kk.KERNEL.launches
+    through_kernel = grads(kk.kpconv_fused_apply)
+    assert kk.KERNEL.launches == before + 1
+    plain = grads(kk.reference_apply)
+    for a, b in zip(through_kernel, plain):
+        assert a.dtype == b.dtype
+        assert torch.equal(a, b)
 
 
 # ---- the rasterizer kernels (K4, K5, K6) ----

@@ -24,6 +24,10 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+# the test run spreads files over several worker processes that share the
+# host's cores; torch's default of one thread per core oversubscribes them
+torch.set_num_threads(2)
+
 
 def _t(x):
     return torch.from_numpy(np.array(x))

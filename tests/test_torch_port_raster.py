@@ -14,6 +14,10 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+# the test run spreads files over several worker processes that share the
+# host's cores; torch's default of one thread per core oversubscribes them
+torch.set_num_threads(2)
+
 from gaussreg_tpu.gs.rasterizer import binning as jbinning
 from gaussreg_tpu.gs.rasterizer import kernels as jkernels
 from gaussreg_tpu.gs.rasterizer.accumulate import segment_accumulate as jsegment_accumulate

@@ -16,6 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+# the test run spreads files over several worker processes that share the
+# host's cores; torch's default of one thread per core oversubscribes them
+torch.set_num_threads(2)
+
 from gaussreg_tpu_torch.gs.rasterizer import kernels
 from gaussreg_tpu_torch.gs.rasterizer.binning import bin_gaussians
 from gaussreg_tpu_torch.gs.rasterizer.camera import look_at_camera
