@@ -97,10 +97,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    zeroed before and read after, and each of its K2 calls is held against
    the plain version as in phase 4 (`snapshot_path`).
 
+11. training at full width (`train_phase`): TRAIN_STEPS = 30 steps of
+   make_train_step at make_cfg() on random_pair(cfg, 0, num_points=20000)
+   from flax-distributed seeded weights (Adam at 3e-4 with weight decay):
+   every step's gradients finite, the loss falling (mean of the last 5
+   steps under the first 5's), every parameter moved, 14 K2 launches per
+   step and no other kernel launch (the pyramid is built before the counts
+   are zeroed); one step profiled (K2 forward and backward ms by
+   record_function spans); a checkpoint round trip that leaves the eval
+   step's transform bit for bit; one make_tiny_cfg() step on the card
+   against the CPU.
+
 Prints the build seconds, the card's name and power limit, a line per
 pair, a line per kernel call, the profiles, a {"kernels": [...]} JSON line
 listing all fourteen kernels (K1, K2, K3's two entries, K4-K6, P1's three,
-P2's four; K2's entry also carries its backward's time), the card's
+P2's four; K2's entry also carries its backward's time, and its forward's
+and backward's device ms in one profiled train step), the card's
 name and power limit again, and as the last line {"ok": true, "device":
 {...}}. Imports nothing of JAX.
 """
@@ -1167,6 +1179,206 @@ def cli_phase(dev, per_pair):
         raise AssertionError(f"fuse wrote {fused.num_gaussians} gaussians from 2 x {n_in}")
 
 
+TRAIN_STEPS = 30
+TRAIN_LR = 3e-4
+
+
+def train_phase(dev):
+    """11. training at full width. (a) make_cfg() on one synthetic pair,
+    random_pair(cfg, 0, num_points=20000) (overfit_gate's default), its
+    pyramid built once; parameters drawn as the JAX init draws them
+    (reset_parameters) from a seeded generator; TRAIN_STEPS steps of
+    make_train_step with make_optimizer (Adam at 3e-4, weight decay 1e-6).
+    Every step's grad_finite must be 1, the mean loss of the last 5 steps
+    under that of the first 5, every parameter moved (the kernel points by
+    weight decay), and the launch counts, zeroed after the pyramid, 14 K2
+    launches per step and no other. (b) one more step under torch.profiler:
+    device busy share, K2's forward ms (its kernel's device events) and
+    its backward's (record_function spans around `reference_vjp`), the
+    step's heaviest device ops. (c) save_checkpoint, then load_checkpoint
+    (parameters and optimizer state) into a new model: the eval step's
+    transform bit for bit the trained model's, and every optimizer leaf
+    equal. (d) one train step at make_tiny_cfg() on the card and on the CPU
+    from the same weights and the same Gumbel noise: the losses within 5e-4
+    of themselves (3x the CPU's own sensitivity, 1.6e-4 of the losses when
+    every weight moves by 1e-6 of itself; tests/test_torch_port_train.py),
+    every gradient finite."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from gaussreg_tpu_torch.config import make_cfg, make_tiny_cfg
+    from gaussreg_tpu_torch.data.pipeline import Pyramid, make_pair_batch
+    from gaussreg_tpu_torch.data.synthetic import random_pair
+    from gaussreg_tpu_torch.engine.checkpoint import load_checkpoint, save_checkpoint
+    from gaussreg_tpu_torch.engine.trainer import (
+        create_train_state,
+        make_eval_step,
+        make_optimizer,
+        make_train_step,
+    )
+    from gaussreg_tpu_torch.models import registration as reg_mod
+    from gaussreg_tpu_torch.models.losses import overall_loss
+    from gaussreg_tpu_torch.models.matching import sample_gt_node_correspondences_from_gumbel
+    from gaussreg_tpu_torch.ops import _cuda
+    from gaussreg_tpu_torch.ops import kpconv_kernel as kk
+
+    cfg = make_cfg()
+    cfg = dataclasses.replace(cfg, optim=dataclasses.replace(cfg.optim, lr=TRAIN_LR))
+    t0 = time.perf_counter()
+    pair = random_pair(cfg, 0, num_points=20000)
+    batch = make_pair_batch(cfg, *pair, device=dev)
+    torch.cuda.synchronize()
+    log(f"train: pair random_pair(cfg, 0, num_points=20000) and its pyramid in "
+        f"{time.perf_counter() - t0:.2f} s")
+    model = reg_mod.create_model(cfg, dev)
+    tx = make_optimizer(cfg, steps_per_epoch=TRAIN_STEPS)
+    state = create_train_state(cfg, model, torch.Generator().manual_seed(0), tx, device=dev)
+    start = {k: v.detach().clone() for k, v in state.params.items()}
+    step = make_train_step(model, cfg, tx)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    # (a) the steps, launches counted
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # earlier phases' tensors still alive
+    _cuda.reset_launch_counts()
+    hist = []
+    t_all = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        t_step = time.perf_counter()
+        state, m = step(state, [batch], gen)
+        m = {k: float(v) for k, v in m.items()}  # the host reads the metrics: a sync
+        m["seconds"] = time.perf_counter() - t_step
+        hist.append(m)
+        if (i + 1) % 5 == 0:
+            log(f"train: step {i + 1}: loss {m['loss']:.5f} c_loss {m['c_loss']:.5f} f_loss "
+                f"{m['f_loss']:.5f} PIR {m['PIR']:.3f} grad_finite {m['grad_finite']:.0f} "
+                f"vox_overflow {m['vox_overflow']:.0f} {m['seconds']:.3f} s/step; "
+                f"peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    wall = time.perf_counter() - t_all
+    counts = _cuda.launch_counts()
+    secs = [h["seconds"] for h in hist]
+    first, last = (float(np.mean([h["loss"] for h in hist[sl]])) for sl in
+                   (slice(0, 5), slice(-5, None)))
+    still = [k for k, v in state.params.items() if torch.equal(v.detach(), start[k])]
+    log(f"train: {TRAIN_STEPS} steps in {wall:.3f} s, {np.median(secs):.4f} s/step median "
+        f"(steps 2-{TRAIN_STEPS}: {np.mean(secs[1:]):.4f} mean); mean loss first 5 {first:.5f}, "
+        f"last 5 {last:.5f}; peak torch.cuda.max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
+        f"{(torch.cuda.max_memory_allocated() - held) / 2**30:.3f} GiB above the "
+        f"{held / 2**30:.3f} GiB held before the steps; parameters not moved {still}; "
+        f"launches {counts}")
+    if not all(h["grad_finite"] == 1.0 for h in hist):
+        raise AssertionError(f"train: non-finite gradients: {[h['grad_finite'] for h in hist]}")
+    if not last < first:
+        raise AssertionError(f"train: mean loss of the last 5 steps {last} not under the first "
+                             f"5's {first}")
+    if still:
+        raise AssertionError(f"train: parameters that did not move: {still}")
+    want = {name: (14 * TRAIN_STEPS if name == "kpconv_fused_apply" else 0) for name in counts}
+    if counts != want:
+        raise AssertionError(f"train: launches {counts}, expected {want}")
+
+    # (b) one step under torch.profiler; the profiler does not tie the
+    # kernel that K2's ctypes wrapper launches to the span around it, so
+    # K2's forward is read by its kernel's name and the backward (torch
+    # ops) by its spans
+    orig_vjp = kk.reference_vjp
+
+    def vjp_span(*a, **kw):
+        with record_function("k2_backward"):
+            return orig_vjp(*a, **kw)
+
+    with Swap(kk, "reference_vjp", vjp_span):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t_prof = time.perf_counter()
+            state, m = step(state, [batch], gen)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t_prof) * 1e3
+    fwd = [e for e in prof.key_averages() if "kpconv_fused_kernel" in e.key
+           and str(getattr(e, "device_type", "")).endswith("CUDA")]
+    fwd_ms = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+                 for e in fwd) / 1e3
+    fwd_n = sum(e.count for e in fwd)
+    # the CPU-side spans' device time: that of the kernels launched inside
+    # them (the span's GPU-side annotation also covers the gaps between them)
+    bwd = [e for e in prof.key_averages() if e.key == "k2_backward"
+           and str(getattr(e, "device_type", "")).endswith("CPU")]
+    bwd_ms = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+                 for e in bwd) / 1e3
+    bwd_n = sum(e.count for e in bwd)
+    log(f"train profile: K2 forward {fwd_ms:.3f} ms device over {fwd_n} kernels, K2 backward "
+        f"(reference_vjp) {bwd_ms:.3f} ms device over {bwd_n} spans, per step")
+    report_profile(prof, "one train step", wall_ms, 15)
+    if fwd_n != 14 or bwd_n != 14 or not bwd_ms > 0:
+        raise AssertionError(f"train profile: {fwd_n} K2 forward kernels, {bwd_n} backward spans "
+                             f"of {bwd_ms} ms")
+
+    # (c) checkpoint round trip
+    eval_step = make_eval_step(model, cfg)
+    est, met = eval_step(batch, torch.Generator(device=dev).manual_seed(5))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = save_checkpoint(tmp, "train", state.params, state.opt_state,
+                               {"step": state.step})
+        model2 = reg_mod.create_model(cfg, dev)
+        template = tx.init({k: torch.zeros_like(v) for k, v in state.params.items()})
+        params2, opt2 = load_checkpoint(path, template)
+        model2.load_state_dict(params2)
+        size = os.path.getsize(path)
+    est2, _ = make_eval_step(model2, cfg)(batch, torch.Generator(device=dev).manual_seed(5))
+    def leaves(st):
+        if isinstance(st, tuple):
+            return [t for x in st for t in leaves(x)]
+        return list(st.values()) if isinstance(st, dict) else [st]
+
+    opt_equal = all((torch.equal(a, b) if torch.is_tensor(a) else a == b)
+                    for a, b in zip(leaves(state.opt_state), leaves(opt2)))
+    log(f"train checkpoint: {size} bytes; eval step before and after the round trip: RRE "
+        f"{float(met['RRE']):.4f} deg, RR {float(met['RR']):.0f}, PIR {float(met['PIR']):.3f}, "
+        f"transform equal {torch.equal(est, est2)}, optimizer state equal {opt_equal}")
+    if not (torch.equal(est, est2) and opt_equal):
+        raise AssertionError("train checkpoint: the round trip changed the model or the optimizer")
+
+    # (d) card against CPU at make_tiny_cfg()
+    tiny = make_tiny_cfg()
+    tb = make_pair_batch(tiny, *random_pair(tiny, 20_000_300, num_points=500), device="cpu")
+    to = lambda f, d: tuple(t.to(d) for t in f) if isinstance(f, tuple) else f.to(d)
+    tb_dev = tb._replace(pyramid=Pyramid(*[to(f, dev) for f in tb.pyramid]),
+                         features=tb.features.to(dev), transform=tb.transform.to(dev))
+    m_cpu = reg_mod.create_model(tiny, "cpu")
+    m_cpu.reset_parameters(torch.Generator().manual_seed(0))
+    m_dev = copy.deepcopy(m_cpu).to(dev)
+    nc = tb.pyramid.points[-1].shape[1]
+    gumbel = torch.from_numpy(np.random.default_rng(0).gumbel(size=(nc, nc)).astype(np.float32))
+
+    def one(model, b):
+        g = gumbel.to(b.transform.device)
+        with Swap(reg_mod, "sample_gt_node_correspondences",
+                  lambda gen, *a: sample_gt_node_correspondences_from_gumbel(g, *a)):
+            out = model(b, None, train=True, with_transform=False)
+        losses = overall_loss(tiny, out, b.transform)
+        losses["loss"].backward()
+        bad = [n for n, p in model.named_parameters()
+               if p.requires_grad and (p.grad is None or not bool(torch.isfinite(p.grad).all()))]
+        return {k: float(v.detach()) for k, v in losses.items()}, bad
+
+    before = kk.KERNEL.launches
+    l_dev, bad_dev = one(m_dev, tb_dev)
+    launched = kk.KERNEL.launches - before
+    l_cpu, bad_cpu = one(m_cpu, tb)
+    rel = {k: abs(l_dev[k] - l_cpu[k]) / abs(l_cpu[k]) for k in l_cpu}
+    log(f"train card vs CPU (make_tiny_cfg, one step, same weights and Gumbel noise): card "
+        f"{l_dev}, CPU {l_cpu}, relative differences {rel}; K2 launches on the card {launched}")
+    if bad_dev or bad_cpu or launched != 14 or max(rel.values()) > 5e-4:
+        raise AssertionError(f"train card vs CPU: {rel}, no or non-finite gradient for "
+                             f"{bad_dev + bad_cpu}, {launched} K2 launches")
+    return {"s_per_step": float(np.median(secs)), "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+            "peak_gib": (torch.cuda.max_memory_allocated() - held) / 2**30}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--pairs", type=int, default=8, help="held-out pairs to register")
@@ -1458,6 +1670,11 @@ def main() -> int:
     # 9. the probes' twins; 10. the CLIs
     probe_phase(dev, kernels)
     cli_phase(dev, per_pair)
+
+    # 11. training at full width
+    train = train_phase(dev)
+    kernels[1]["train_forward_ms_per_step"] = train["fwd_ms"]
+    kernels[1]["train_backward_ms_per_step"] = train["bwd_ms"]
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

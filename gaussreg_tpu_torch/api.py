@@ -54,7 +54,8 @@ def coarse_register_clouds(
     )
     generator = torch.Generator(device=dev)
     generator.manual_seed(seed)
-    out = model(batch, generator)
+    with torch.no_grad():
+        out = model(batch, generator)
     out["batch"] = batch
     return out
 

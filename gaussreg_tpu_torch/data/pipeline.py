@@ -134,6 +134,37 @@ def pad_cloud(points, features, capacity: int):
     return p, f, m
 
 
+def augment_pair_pose(pb: PairBatch, rng: np.random.Generator) -> PairBatch:
+    """Rigid pose augmentation of a built PairBatch, on the host in numpy
+    and scipy with the JAX package's draws from `rng`: independent rigid
+    motions Tr, Ts move the ref and src clouds at every pyramid level.
+    Rigid maps keep every distance, so the neighbour, subsampling and
+    upsampling lists stay valid; the GT becomes Tr @ gt @ Ts^-1. The
+    result lies on the batch's device."""
+    from scipy.spatial.transform import Rotation
+
+    tr = np.eye(4, dtype=np.float32)
+    ts = np.eye(4, dtype=np.float32)
+    tr[:3, :3] = Rotation.random(random_state=rng).as_matrix()
+    ts[:3, :3] = Rotation.random(random_state=rng).as_matrix()
+    tr[:3, 3] = rng.normal(scale=0.5, size=3)
+    ts[:3, 3] = rng.normal(scale=0.5, size=3)
+    both = np.stack([tr, ts])  # (2, 4, 4) per-cloud motions
+    rot = both[:, :3, :3]
+    off = both[:, None, :3, 3]
+    dev = pb.transform.device
+    pts = tuple(
+        torch.from_numpy(
+            (np.einsum("bnc,bdc->bnd", p.cpu().numpy().astype(np.float32), rot) + off)
+            .astype(np.float32)
+        ).to(dev)
+        for p in pb.pyramid.points
+    )
+    gt = (tr @ pb.transform.cpu().numpy() @ np.linalg.inv(ts)).astype(np.float32)
+    return pb._replace(pyramid=pb.pyramid._replace(points=pts),
+                       transform=torch.from_numpy(gt).to(dev))
+
+
 def make_pair_batch(
     cfg: Config,
     ref_points,

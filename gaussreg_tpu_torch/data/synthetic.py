@@ -1,5 +1,5 @@
-"""Synthetic registration pairs (port of gaussreg_tpu/data/synthetic.py:
-random_pair, host numpy).
+"""Synthetic registration pairs (port of gaussreg_tpu/data/synthetic.py):
+`random_pair` on the host in numpy, `make_synthetic_batch` on the device.
 
 Generates scene pairs with a known GT similarity transform, mimicking the
 statistics of the ScanNet-GSReg pipeline output (volume-normalized clouds
@@ -8,9 +8,13 @@ with [opacity, RGB] features; reference datasets/.../dataset.py:214-261).
 
 from __future__ import annotations
 
+from typing import List, Sequence
+
 import numpy as np
 
 from gaussreg_tpu_torch.config import Config
+from gaussreg_tpu_torch.data.pipeline import PairBatch, make_pair_batch
+from gaussreg_tpu_torch.device import DeviceLike, resolve_device
 
 # bump when the generated distribution changes: tools/trainval.py keys its
 # on-disk batch cache on this so stale pyramids are never replayed.
@@ -251,3 +255,17 @@ def random_pair(
         ref_points = ref_points.astype(np.float32)
         src_points = src_points.astype(np.float32)
     return ref_points, ref_feats, src_points, src_feats, m
+
+
+def make_synthetic_batch(cfg: Config, seeds: Sequence[int], num_points=None,
+                         device: DeviceLike = None) -> List[PairBatch]:
+    """One PairBatch per seed, built on `device` (default cuda; raises
+    without it). The JAX package stacks the pairs into one batched PairBatch
+    for `vmap`; eager torch has no vmap over a tree of pyramids, so this
+    returns the list, which the train step takes as it is."""
+    dev = resolve_device(device)
+    batches = []
+    for seed in seeds:
+        rp, rf, sp, sf, m = random_pair(cfg, seed, num_points=num_points)
+        batches.append(make_pair_batch(cfg, rp, rf, sp, sf, m, device=dev))
+    return batches

@@ -13,20 +13,37 @@ model's state_dict:
 - `ot_alpha` maps to the model's `ot_alpha`.
 
 `flax_from_params` maps back (engine/torch_import.py fills that tree).
+
+`save_checkpoint` writes the JAX package's checkpoint layout with a small
+msgpack encoder of its own: `<name>.msgpack` holding {"params":
+{"params": tree}, "opt_state": state} as `flax.serialization.to_bytes`
+lays it out, plus a `<name>.json` sidecar, so that the JAX
+`load_checkpoint` restores both; `load_checkpoint` reads either side's
+files, optionally with the optimizer state (engine/trainer.py's state,
+carried in the layout of `flax.serialization.to_state_dict` of the optax
+state).
 """
 
 from __future__ import annotations
 
+import json
+import logging
+import os
 import struct
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from gaussreg_tpu_torch.engine.summary import process_index
 
 # flax/serialization.py _MsgpackExtType
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
 _CHUNKED = "__msgpack_chunked_array__"
+_MAX_CHUNK_BYTES = 2**30  # flax/serialization.py MAX_CHUNK_SIZE
+
+logger = logging.getLogger("gaussreg")
 
 
 class _Reader:
@@ -106,6 +123,69 @@ class _Reader:
             arr = np.frombuffer(buffer, dtype=np.dtype(dtype_name)).reshape(shape).copy()
             return arr[()] if code == _EXT_NPSCALAR else arr
         raise ValueError(f"unsupported msgpack ext type {code}")
+
+
+def _pack(obj, out: bytearray) -> None:
+    """msgpack encoding, as msgpack.packb(obj, use_bin_type=True) gives it,
+    of what a checkpoint holds: dicts, str keys, non-negative ints (shapes),
+    bytes, lists, and numpy arrays as flax's ndarray ext type."""
+    if isinstance(obj, int) and 0 <= obj < 1 << 64:
+        if obj <= 0x7F:
+            out.append(obj)
+        else:
+            for code, n in ((0xCC, 1), (0xCD, 2), (0xCE, 4), (0xCF, 8)):
+                if obj < 1 << (8 * n):
+                    out.append(code)
+                    out += obj.to_bytes(n, "big")
+                    break
+    elif isinstance(obj, str):
+        data = obj.encode("utf-8")
+        if len(data) < 32:
+            out.append(0xA0 | len(data))
+        else:
+            _length(out, len(data), (0xD9, 0xDA, 0xDB))
+        out += data
+    elif isinstance(obj, bytes):
+        _length(out, len(obj), (0xC4, 0xC5, 0xC6))
+        out += obj
+    elif isinstance(obj, list):
+        if len(obj) < 16:
+            out.append(0x90 | len(obj))
+        else:
+            _length(out, len(obj), (None, 0xDC, 0xDD))
+        for item in obj:
+            _pack(item, out)
+    elif isinstance(obj, dict):
+        if len(obj) < 16:
+            out.append(0x80 | len(obj))
+        else:
+            _length(out, len(obj), (None, 0xDE, 0xDF))
+        for k, v in obj.items():
+            _pack(k, out)
+            _pack(v, out)
+    elif isinstance(obj, np.ndarray):
+        if obj.nbytes > _MAX_CHUNK_BYTES:
+            raise ValueError("arrays over 1 GiB are written in chunks by flax; not supported")
+        payload = bytearray()
+        _pack([list(obj.shape), obj.dtype.name, np.ascontiguousarray(obj).tobytes()], payload)
+        fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if len(payload) in fixed:
+            out.append(fixed[len(payload)])
+        else:
+            _length(out, len(payload), (0xC7, 0xC8, 0xC9))
+        out.append(_EXT_NDARRAY)
+        out += payload
+    else:
+        raise TypeError(f"cannot encode {type(obj).__name__} in a checkpoint")
+
+
+def _length(out: bytearray, n: int, codes) -> None:
+    for code, width in zip(codes, (1, 2, 4)):
+        if code is not None and n < 1 << (8 * width):
+            out.append(code)
+            out += n.to_bytes(width, "big")
+            return
+    raise ValueError(f"msgpack length {n} too large")
 
 
 def _unchunk(tree):
@@ -276,9 +356,94 @@ def flax_from_params(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     return {"backbone": bb, "transformer": tr, "ot_alpha": sd["ot_alpha"]}
 
 
-def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
-    """Read a JAX package checkpoint into the port model's state_dict. The
-    file holds {"params": variables, optionally "opt_state": ...}, where
-    variables is model.init's {"params": tree}; the optimizer state is
-    dropped."""
-    return params_from_flax(read_flax_msgpack(path)["params"]["params"])
+# ------------------------------------------------------ optimizer state
+
+
+def opt_state_to_flax(state) -> Any:
+    """The port optimizer's state (engine/trainer.py) as
+    `flax.serialization.to_state_dict` lays out the optax state: a
+    NamedTuple becomes {field: ...}, a tuple {"0": ..., "1": ...}, a
+    per-parameter dict the variables tree {"params": tree}, a count an
+    int32 array."""
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return {f: opt_state_to_flax(getattr(state, f)) for f in state._fields}
+    if isinstance(state, tuple):
+        return {str(i): opt_state_to_flax(x) for i, x in enumerate(state)}
+    if isinstance(state, dict):
+        return {"params": flax_from_params(state)}
+    return np.asarray(state, np.int32)
+
+
+def opt_state_from_flax(template, tree) -> Any:
+    """The inverse of `opt_state_to_flax`, shaped by a `template` state (the
+    optimizer's `init`): tensors land on the template's devices."""
+    if isinstance(template, tuple) and hasattr(template, "_fields"):
+        if set(tree) != set(template._fields):
+            raise ValueError(f"optimizer state fields {sorted(tree)} are not "
+                             f"{sorted(template._fields)}")
+        return type(template)(**{f: opt_state_from_flax(getattr(template, f), tree[f])
+                                 for f in template._fields})
+    if isinstance(template, tuple):
+        if len(tree) != len(template):
+            raise ValueError(f"optimizer state holds {len(tree)} entries, expected "
+                             f"{len(template)}")
+        return tuple(opt_state_from_flax(t, tree[str(i)]) for i, t in enumerate(template))
+    if isinstance(template, dict):
+        loaded = params_from_flax(tree["params"])
+        return {n: loaded[n].to(t.device, t.dtype) for n, t in template.items()}
+    return int(np.asarray(tree))
+
+
+def save_checkpoint(
+    directory: str,
+    name: str,
+    params,
+    opt_state: Any = None,
+    metadata: Optional[Dict] = None,
+) -> str:
+    """Write `<directory>/<name>.msgpack` and its `.json` sidecar in the JAX
+    package's layout. `params` is the model's state_dict (or its parameters
+    by name, or the model); `opt_state` the optimizer state of
+    engine/trainer.py. Only process 0 writes; every process returns the
+    path."""
+    path = os.path.join(directory, f"{name}.msgpack")
+    if process_index() != 0:
+        return path
+    if isinstance(params, torch.nn.Module):
+        params = params.state_dict()
+    payload = {"params": {"params": flax_from_params(params)}}
+    if opt_state is not None:
+        payload["opt_state"] = opt_state_to_flax(opt_state)
+    data = bytearray()
+    _pack(payload, data)
+    os.makedirs(directory, exist_ok=True)
+    with open(path + ".tmp", "wb") as f:
+        f.write(bytes(data))
+    os.replace(path + ".tmp", path)
+    with open(os.path.join(directory, f"{name}.json"), "w") as f:
+        json.dump(dict(metadata or {}), f)
+    return path
+
+
+def load_checkpoint(path: str, opt_state_template: Any = None):
+    """Read a checkpoint of either package into the port model's
+    state_dict. The file holds {"params": variables, optionally "opt_state":
+    ...}, where variables is model.init's {"params": tree}. With an
+    `opt_state_template` (the optimizer's `init`) returns (state_dict,
+    opt_state); otherwise the optimizer state is dropped."""
+    tree = read_flax_msgpack(path)
+    params = params_from_flax(tree["params"]["params"])
+    if opt_state_template is None:
+        return params
+    if "opt_state" not in tree:
+        raise ValueError(f"{path} holds no optimizer state")
+    return params, opt_state_from_flax(opt_state_template, tree["opt_state"])
+
+
+def load_metadata(directory: str, name: str) -> Dict:
+    """The `<name>.json` sidecar, or {} when there is none."""
+    p = os.path.join(directory, f"{name}.json")
+    if not os.path.exists(p):
+        return {}
+    with open(p) as f:
+        return json.load(f)

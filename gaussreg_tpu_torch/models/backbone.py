@@ -11,6 +11,7 @@ import torch
 from torch import nn
 
 from gaussreg_tpu_torch.data.pipeline import Pyramid
+from gaussreg_tpu_torch.models import initializers as init
 from gaussreg_tpu_torch.models.kpconv import (
     ConvBlock,
     ResidualBlock,
@@ -51,6 +52,14 @@ class KPConvFPN(nn.Module):
         self.decoder4 = UnaryBlock(d * 48, d * 16, g)
         self.decoder3 = UnaryBlock(d * 24, d * 8, g)
         self.decoder2 = nn.Linear(d * 12, output_dim)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """flax's init for every block (models/initializers.py)."""
+        for name, module in self.named_children():
+            if name == "decoder2":
+                init.dense_(module, generator)
+            else:
+                module.reset_parameters(generator)
 
     def forward(self, feats: torch.Tensor, pyramid: Pyramid):
         pts, msk = pyramid.points, pyramid.masks

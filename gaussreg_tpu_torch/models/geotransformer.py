@@ -12,6 +12,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from gaussreg_tpu_torch.models import initializers as init
 from gaussreg_tpu_torch.models.transformer import (
     RPEConditionalTransformer,
     sinusoidal_embedding,
@@ -33,6 +34,10 @@ class GeometricStructureEmbedding(nn.Module):
         self.row_chunk = row_chunk
         self.proj_d = nn.Linear(hidden_dim, hidden_dim)
         self.proj_a = nn.Linear(hidden_dim, hidden_dim)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        init.dense_(self.proj_d, generator)
+        init.dense_(self.proj_a, generator)
 
     def forward(self, points, mask):
         # points: (B, N, 3), mask: (B, N)
@@ -85,6 +90,12 @@ class GeometricTransformer(nn.Module):
         self.in_proj = nn.Linear(input_dim, hidden_dim)
         self.transformer = RPEConditionalTransformer(blocks, hidden_dim, num_heads)
         self.out_proj = nn.Linear(hidden_dim, output_dim)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.embedding.reset_parameters(generator)
+        init.dense_(self.in_proj, generator)
+        self.transformer.reset_parameters(generator)
+        init.dense_(self.out_proj, generator)
 
     def forward(self, ref_points, src_points, ref_feats, src_feats, ref_mask, src_mask):
         ref_embed = self.embedding(ref_points, ref_mask)

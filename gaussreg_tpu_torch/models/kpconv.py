@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gaussreg_tpu_torch.models import initializers as init
 from gaussreg_tpu_torch.ops.kpconv_kernel import kpconv_fused_apply
 
 _SENTINEL_COORD = 1e6
@@ -54,9 +55,24 @@ def batched_gather(values: torch.Tensor, indices: torch.Tensor, fill=0.0):
     flat = values.reshape((b * n,) + values.shape[2:])
     clipped = torch.clamp_max(indices, n - 1).long()
     off = (torch.arange(b, device=values.device) * n).reshape((b,) + (1,) * (indices.dim() - 1))
-    out = flat[(clipped + off).reshape(-1)].reshape(indices.shape + values.shape[2:])
+    # index_select, not advanced indexing: its backward is index_add_, where
+    # advanced indexing's sorts the indices first (~2 s of a make_cfg()
+    # train step's 2.2 s on the H100)
+    out = torch.index_select(flat, 0, (clipped + off).reshape(-1))
+    out = out.reshape(indices.shape + values.shape[2:])
     sentinel = (indices == n).reshape(indices.shape + (1,) * (values.dim() - 2))
     return torch.where(sentinel, torch.as_tensor(fill, dtype=values.dtype, device=values.device), out)
+
+
+def gather_bf16(s_feats, neighbor_indices):
+    """Neighbour features (B, M, H, C) in bf16, the same values whichever
+    comes first. Without a gradient the cast precedes the gather, as in the
+    JAX package: the gather moves half the bytes. Under grad it follows the
+    gather, so that the gather's backward (index_add_) sums the features'
+    gradients in f32."""
+    if s_feats.requires_grad:
+        return batched_gather(s_feats, neighbor_indices, fill=0.0).to(torch.bfloat16)
+    return batched_gather(s_feats.to(torch.bfloat16), neighbor_indices, fill=0.0)
 
 
 def kpconv_geometry(q_points, s_points, neighbor_indices, kernel_points, sigma):
@@ -86,10 +102,20 @@ class KPConv(nn.Module):
     def __init__(self, in_channels, out_channels, kernel_size, radius, sigma):
         super().__init__()
         self.sigma = sigma
+        self.radius = radius
         kp = generate_kernel_points(kernel_size) * radius
         self.kernel_points = nn.Parameter(torch.from_numpy(kp), requires_grad=False)
         self.weights = nn.Parameter(torch.zeros(kernel_size, in_channels, out_channels))
         self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """flax's init: weights variance_scaling(1/3, fan_in, uniform) with
+        fan_in = K * Cin, bias zeros, kernel points the generated
+        disposition (a parameter without gradient, as in the JAX tree)."""
+        k, c_in, _ = self.weights.shape
+        init.variance_scaling_uniform_(self.weights, 1.0 / 3.0, k * c_in, generator)
+        init.constant_(self.bias, 0.0)
+        init.fill_(self.kernel_points, torch.from_numpy(generate_kernel_points(k) * self.radius))
 
     def forward(self, s_feats, q_points, s_points, neighbor_indices,
                 geometry: Optional[Geometry] = None):
@@ -98,9 +124,9 @@ class KPConv(nn.Module):
                 q_points, s_points, neighbor_indices, self.kernel_points, self.sigma
             )
         influence, count = geometry
-        # bf16 features (cast before the gather) and influences, f32
-        # accumulation inside the fused aggregation
-        nf = batched_gather(s_feats.to(torch.bfloat16), neighbor_indices, fill=0.0)
+        # bf16 features and influences, f32 accumulation inside the fused
+        # aggregation
+        nf = gather_bf16(s_feats, neighbor_indices)
         out = kpconv_fused_apply(nf, influence, self.weights)
         out = out / torch.clamp_min(count, 1)[..., None].to(out.dtype)
         return out + self.bias
@@ -115,6 +141,9 @@ class MaskedGroupNorm(nn.Module):
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        init.norm_(self)
 
     def forward(self, x, mask):
         c = x.shape[-1]
@@ -138,6 +167,10 @@ class UnaryBlock(nn.Module):
         self.norm = MaskedGroupNorm(group_norm, out_channels)
         self.has_relu = has_relu
 
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        init.dense_(self.linear, generator)
+        self.norm.reset_parameters(generator)
+
     def forward(self, x, mask):
         x = self.norm(self.linear(x), mask)
         return F.leaky_relu(x, 0.1) if self.has_relu else x
@@ -150,6 +183,10 @@ class ConvBlock(nn.Module):
         super().__init__()
         self.conv = KPConv(in_channels, out_channels, kernel_size, radius, sigma)
         self.norm = MaskedGroupNorm(group_norm, out_channels)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for module in self.children():
+            module.reset_parameters(generator)
 
     def forward(self, s_feats, q_points, s_points, neighbor_indices, q_mask, geometry=None):
         x = self.conv(s_feats, q_points, s_points, neighbor_indices, geometry)
@@ -184,6 +221,10 @@ class ResidualBlock(nn.Module):
             if in_channels != out_channels
             else None
         )
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for module in self.children():
+            module.reset_parameters(generator)
 
     def forward(self, s_feats, q_points, s_points, neighbor_indices, q_mask, s_mask,
                 geometry=None):

@@ -12,6 +12,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gaussreg_tpu_torch.models import initializers as init
+
 
 def sinusoidal_embedding(indices: torch.Tensor, d_model: int) -> torch.Tensor:
     """Continuous-index sinusoidal embedding with interleaved [sin, cos]."""
@@ -39,6 +41,13 @@ class AttentionOutput(nn.Module):
         self.squeeze = nn.Linear(d_model * 2, d_model)
         self.norm = nn.LayerNorm(d_model, eps=1e-6)
 
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        # the squeeze kernel starts at zero: the residual branch is a no-op
+        # at init, as in the JAX package
+        init.dense_(self.expand, generator)
+        init.dense_(self.squeeze, generator, zero_kernel=True)
+        init.norm_(self.norm)
+
     def forward(self, x):
         return self.norm(x + self.squeeze(F.relu(self.expand(x))))
 
@@ -52,6 +61,10 @@ class MultiHeadAttention(nn.Module):
         self.proj_q = nn.Linear(d_model, d_model)
         self.proj_k = nn.Linear(d_model, d_model)
         self.proj_v = nn.Linear(d_model, d_model)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for proj in (self.proj_q, self.proj_k, self.proj_v):
+            init.dense_(proj, generator)
 
     def forward(self, q_in, k_in, v_in, key_valid=None):
         h = self.num_heads
@@ -79,6 +92,12 @@ class RPEMultiHeadAttention(nn.Module):
         # flax layout (d_embed, d_model), kept as in the JAX parameter tree
         self.proj_p_kernel = nn.Parameter(torch.zeros(d_embed, d_model))
         self.proj_p_bias = nn.Parameter(torch.zeros(d_model))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for proj in (self.proj_q, self.proj_k, self.proj_v):
+            init.dense_(proj, generator)
+        init.lecun_normal_(self.proj_p_kernel, self.proj_p_kernel.shape[0], generator)
+        init.constant_(self.proj_p_bias, 0.0)
 
     def forward(self, q_in, k_in, v_in, embed_qk, key_valid=None):
         h = self.num_heads
@@ -108,6 +127,13 @@ class TransformerLayer(nn.Module):
         self.norm = nn.LayerNorm(d_model, eps=1e-6)
         self.output = AttentionOutput(d_model)
 
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        # zero kernel: the attention branch is a no-op at init
+        self.attention.reset_parameters(generator)
+        init.dense_(self.linear, generator, zero_kernel=True)
+        init.norm_(self.norm)
+        self.output.reset_parameters(generator)
+
     def forward(self, x, memory, key_valid=None):
         h = self.linear(self.attention(x, memory, memory, key_valid))
         return self.output(self.norm(x + h))
@@ -120,6 +146,13 @@ class RPETransformerLayer(nn.Module):
         self.linear = nn.Linear(d_model, d_model)
         self.norm = nn.LayerNorm(d_model, eps=1e-6)
         self.output = AttentionOutput(d_model)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        # zero kernel: the attention branch is a no-op at init
+        self.attention.reset_parameters(generator)
+        init.dense_(self.linear, generator, zero_kernel=True)
+        init.norm_(self.norm)
+        self.output.reset_parameters(generator)
 
     def forward(self, x, memory, embed_qk, key_valid=None):
         h = self.linear(self.attention(x, memory, memory, embed_qk, key_valid))
@@ -137,6 +170,10 @@ class RPEConditionalTransformer(nn.Module):
             else TransformerLayer(d_model, num_heads)
             for b in self.blocks
         )
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for layer in self.layers:
+            layer.reset_parameters(generator)
 
     def forward(self, feats0, feats1, embed0, embed1, valid0=None, valid1=None):
         for block, layer in zip(self.blocks, self.layers):

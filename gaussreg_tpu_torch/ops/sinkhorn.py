@@ -4,6 +4,7 @@
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 _INF = 1e12
 
@@ -15,7 +16,9 @@ def log_optimal_transport(
     alpha: torch.Tensor,  # () dustbin score
     num_iterations: int = 100,
 ) -> torch.Tensor:
-    """Returns the (B, M+1, N+1) log transport plan."""
+    """Returns the (B, M+1, N+1) log transport plan. Under grad each
+    iteration's body is checkpointed (`torch.utils.checkpoint`), as the JAX
+    package's scan body is `jax.checkpoint`ed."""
     b, m, n = scores.shape
     dtype = scores.dtype
     false = torch.zeros((b, 1), dtype=torch.bool, device=scores.device)
@@ -39,11 +42,22 @@ def log_optimal_transport(
         [norm[:, None].expand(b, n), (torch.log(num_valid_row) + norm)[:, None]], dim=1
     ).masked_fill(pad_col_invalid, -_INF)
 
-    u = torch.zeros_like(log_mu)
-    v = torch.zeros_like(log_nu)
-    for _ in range(num_iterations):
+    def body(u, v):
         u = log_mu - torch.logsumexp(padded + v[:, None, :], dim=2)
         v = log_nu - torch.logsumexp(padded + u[:, :, None], dim=1)
+        return u, v
+
+    u = torch.zeros_like(log_mu)
+    v = torch.zeros_like(log_nu)
+    # under grad each iteration is recomputed in the backward: only the
+    # (u, v) carries are saved, not 2 * num_iterations (B, M+1, N+1)
+    # logsumexp residuals (3+ GB at make_cfg() sizes)
+    remat = torch.is_grad_enabled() and (padded.requires_grad or alpha.requires_grad)
+    for _ in range(num_iterations):
+        if remat:
+            u, v = checkpoint(body, u, v, use_reentrant=False)
+        else:
+            u, v = body(u, v)
 
     out = padded + u[:, :, None] + v[:, None, :]
     return out - norm[:, None, None]

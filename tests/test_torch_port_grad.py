@@ -74,6 +74,37 @@ def test_kpconv_backward_only_where_asked():
         assert kpconv_fused_apply(nf, infl, w1).grad_fn is None
 
 
+@pytest.mark.parametrize("needs_grad", [False, True])
+def test_gather_bf16_values_and_gradient_sums(needs_grad):
+    """KPConv's neighbour features: `gather_bf16` gives the bf16 values of
+    the f32 gather (casting first or last rounds the same elements), the
+    sentinel index N giving zeros. Under grad the gather's backward sums the
+    features' gradients in f32: equal to an f32 index_add_ of the rounded
+    cotangents. The A/B tool's gather by advanced indexing (the port's
+    earlier `batched_gather`) gives the same values."""
+    from gaussreg_tpu_torch.models.kpconv import batched_gather, gather_bf16
+    from gaussreg_tpu_torch.tools.gather_cast_ab import gather_advanced
+
+    gen = torch.Generator().manual_seed(3)
+    b, n, m, h, c = 2, 50, 30, 9, 12
+    feats = torch.randn(b, n, c, generator=gen)
+    idx = torch.randint(0, n + 1, (b, m, h), generator=gen)  # n: the sentinel
+    s = feats.clone().requires_grad_(needs_grad)
+    nf = gather_bf16(s, idx)
+    assert nf.dtype == torch.bfloat16
+    assert torch.equal(nf, batched_gather(feats, idx).to(torch.bfloat16))
+    assert torch.equal(batched_gather(feats, idx), gather_advanced(feats, idx))
+    assert not bool(nf[(idx == n)].any())
+    if needs_grad:
+        g = torch.randn(b, m, h, c, generator=gen).to(torch.bfloat16)
+        (grad,) = torch.autograd.grad(nf, [s], g)
+        flat = (idx + n * torch.arange(b)[:, None, None]).reshape(-1)
+        keep = (idx != n).reshape(-1)
+        want = torch.zeros(b * n, c).index_add_(0, flat[keep], g.float().reshape(-1, c)[keep])
+        assert grad.dtype == torch.float32
+        assert torch.equal(grad, want.reshape(b, n, c))
+
+
 def _scores(rng, p, kk, tied):
     if tied:  # few distinct values: many ties per row and column
         s = np.exp(rng.integers(-20, 5, size=(p, kk, kk)) / 4.0)

@@ -130,7 +130,8 @@ def forward_pair():
     pyr = Pyramid(*[tuple(_t(a) for a in f) if isinstance(f, tuple) else _t(f)
                     for f in batch.pyramid])
     tbatch = PairBatch(pyr, _t(batch.features), _t(batch.transform))
-    tout = tmodel(tbatch, torch.Generator().manual_seed(0))
+    with torch.no_grad():  # the eval forward, as api.coarse_register_clouds runs it
+        tout = tmodel(tbatch, torch.Generator().manual_seed(0))
     return cfg, jout, {k: v.numpy() for k, v in tout.items()}
 
 
