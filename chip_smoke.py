@@ -106,7 +106,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    are zeroed); one step profiled (K2 forward and backward ms by
    record_function spans); a checkpoint round trip that leaves the eval
    step's transform bit for bit; one make_tiny_cfg() step on the card
-   against the CPU.
+   against the CPU. Each step draws its pair from its own generator
+   (`pair_generator(dev, 1, step, 0)`).
+12. train and evaluate through the CLIs (`cli_train_eval_phase`): `python
+   -m gaussreg_tpu_torch.tools.trainval --synthetic` at make_cfg() (8 pool
+   pairs, 4 validation pairs) with --distributed at world 1 on NCCL, one
+   epoch, then --resume to epoch 2 in a new process: 16 logged steps, all
+   finite with grad_finite 1, the snapshot at step 16, per epoch the prep,
+   proc and prefetch build seconds (epoch 2 replays the batch cache);
+   `tools.ddp_check` with 2 gloo ranks on this card at make_tiny_cfg()
+   (the ranks bit-equal after 2 steps, step-1 metrics equal to a 1-rank
+   run's, the gradient all-reduce's ms); a fake ScanNet-GSReg tree of
+   write_scene_plys scenes (2 train, 2 test): `trainval --data_root` for
+   one augmented epoch, `tools.eval_scannet` with the trained checkpoint in
+   this process (launch counts zeroed before and read after: 13 K1, 14 K2,
+   1 fused K3 per scene; every scene under 5 degrees RRE), then `--fine
+   --fine_steps 20` on one scene (finite, K4-K6 launched);
+   `tools.eval_synthetic` on phase 2's 8 held-out pairs (recall_RMSE<0.2 =
+   1.0).
 
 Prints the build seconds, the card's name and power limit, a line per
 pair, a line per kernel call, the profiles, a {"kernels": [...]} JSON line
@@ -123,6 +140,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1219,6 +1237,7 @@ def train_phase(dev):
         make_eval_step,
         make_optimizer,
         make_train_step,
+        pair_generator,
     )
     from gaussreg_tpu_torch.models import registration as reg_mod
     from gaussreg_tpu_torch.models.losses import overall_loss
@@ -1239,7 +1258,6 @@ def train_phase(dev):
     state = create_train_state(cfg, model, torch.Generator().manual_seed(0), tx, device=dev)
     start = {k: v.detach().clone() for k, v in state.params.items()}
     step = make_train_step(model, cfg, tx)
-    gen = torch.Generator(device=dev).manual_seed(1)
 
     # (a) the steps, launches counted
     torch.cuda.reset_peak_memory_stats()
@@ -1249,7 +1267,7 @@ def train_phase(dev):
     t_all = time.perf_counter()
     for i in range(TRAIN_STEPS):
         t_step = time.perf_counter()
-        state, m = step(state, [batch], gen)
+        state, m = step(state, [batch], [pair_generator(dev, 1, i, 0)])
         m = {k: float(v) for k, v in m.items()}  # the host reads the metrics: a sync
         m["seconds"] = time.perf_counter() - t_step
         hist.append(m)
@@ -1295,7 +1313,7 @@ def train_phase(dev):
     with Swap(kk, "reference_vjp", vjp_span):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t_prof = time.perf_counter()
-            state, m = step(state, [batch], gen)
+            state, m = step(state, [batch], [pair_generator(dev, 1, TRAIN_STEPS, 0)])
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t_prof) * 1e3
     fwd = [e for e in prof.key_averages() if "kpconv_fused_kernel" in e.key
@@ -1377,6 +1395,245 @@ def train_phase(dev):
                              f"{bad_dev + bad_cpu}, {launched} K2 launches")
     return {"s_per_step": float(np.median(secs)), "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
             "peak_gib": (torch.cuda.max_memory_allocated() - held) / 2**30}
+
+
+TRAIN_LOG_LINE = re.compile(r"epoch (\d+) it (\d+)/(\d+): (.*), prep ([\d.]+)s proc ([\d.]+)s")
+EPOCH_LINE = re.compile(r"epoch (\d+) trained: prep ([\d.]+)s proc ([\d.]+)s per step; the "
+                        r"prefetch thread built a batch in ([\d.]+)s")
+
+
+def read_train_log(path):
+    """The trainval log's per-step metrics ({epoch, it, metrics...}) and its
+    per-epoch timings (epoch -> prep, proc, build seconds)."""
+    steps, epochs = [], {}
+    with open(path) as f:
+        for line in f:
+            m = TRAIN_LOG_LINE.search(line)
+            if m:
+                metrics = dict(kv.split(": ") for kv in m.group(4).split(", "))
+                steps.append({"epoch": int(m.group(1)), "it": int(m.group(2)),
+                              "prep_mean": float(m.group(5)), "proc_mean": float(m.group(6)),
+                              **{k: float(v) for k, v in metrics.items()}})
+            m = EPOCH_LINE.search(line)
+            if m:
+                epochs[int(m.group(1))] = tuple(float(x) for x in m.group(2, 3, 4))
+    return steps, epochs
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_tool(module, *argv, timeout=900):
+    """`python -m gaussreg_tpu_torch.tools.<module> argv` in its own process;
+    fails on a non-zero exit. Returns (seconds, stdout)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"gaussreg_tpu_torch.tools.{module}", *argv],
+                          cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{module} exited with {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-4000:]}")
+    return time.perf_counter() - t0, proc.stdout
+
+
+def check_train_log(what, path, want_steps, snapshot_step):
+    import numpy as np
+
+    """Every logged step finite with grad_finite 1, `want_steps` of them, and
+    the snapshot's step; logs the per-epoch prep/proc/build means and each
+    step's seconds (from the log's running means, logged every step: to
+    ~1 ms)."""
+    steps, epochs = read_train_log(path)
+    bad = [s for s in steps if s["grad_finite"] != 1.0 or not math.isfinite(s["loss"])]
+    for e, (prep, proc, build) in sorted(epochs.items()):
+        ep = [s for s in steps if s["epoch"] == e]
+        each = [s["it"] * s["proc_mean"] - (s["it"] - 1) * prev["proc_mean"]
+                for prev, s in zip([{"proc_mean": 0.0}] + ep, ep)]
+        later = f", median of steps 2-{len(ep)} {float(np.median(each[1:])):.4f} s" \
+            if len(each) > 1 else ""
+        log(f"{what}: epoch {e}: {len(ep)} steps, prep {prep:.4f} s (the wait for the next "
+            f"batch), proc {proc:.4f} s/step, the prefetch thread built a batch in {build:.4f} s; "
+            f"steps {[round(t, 3) for t in each]} s{later}")
+    with open(os.path.join(os.path.dirname(path), "snapshot.json")) as f:
+        meta = json.load(f)
+    log(f"{what}: {len(steps)} steps logged, loss {steps[0]['loss']:.4f} -> "
+        f"{steps[-1]['loss']:.4f}; snapshot {meta}")
+    if len(steps) != want_steps or bad or meta["step"] != snapshot_step:
+        raise AssertionError(f"{what}: {len(steps)} steps (want {want_steps}), not finite or "
+                             f"skipped {bad}, snapshot {meta} (want step {snapshot_step})")
+
+
+def write_scannet_tree(root, cfg, seeds):
+    """A fake ScanNet-GSReg tree in the reference's layout: per subset two
+    scenes from write_scene_plys (B = A's scene under a known similarity
+    m), train.pkl with m as the pair's rotation and translation, test.pkl
+    and test_transformations.npz with identity frame transforms and m as
+    the GT. Returns {test scene: m}."""
+    import pickle
+
+    import numpy as np
+
+    metas, gts = {"train": [], "test": []}, {}
+    seeds = iter(seeds)
+    for subset in ("train", "test"):
+        for k in range(2):
+            scene = f"scene{k:04d}_00"
+            with tempfile.TemporaryDirectory() as tmp:
+                (ref_ply, src_ply), m = write_scene_plys(tmp, cfg, next(seeds))
+                rel = {}
+                for tag, ply in (("A", ref_ply), ("B", src_ply)):
+                    rel[tag] = f"{subset}/{scene}/{tag}/output/point_cloud/iteration_10000"
+                    os.makedirs(os.path.join(root, rel[tag]))
+                    os.replace(ply, os.path.join(root, rel[tag], "point_cloud.ply"))
+            metas[subset].append({
+                "scene_name": scene, "frag_id0": 0, "frag_id1": 1, "overlap": 0.8,
+                "pcd0": f"{rel['A']}/point_cloud.ply", "pcd1": f"{rel['B']}/point_cloud.ply",
+                "rotation": m[:3, :3].copy(), "translation": m[:3, 3].copy(),
+            })
+            if subset == "test":
+                gts[scene] = m
+    for subset, meta in metas.items():
+        with open(os.path.join(root, f"{subset}.pkl"), "wb") as f:
+            pickle.dump(meta, f)
+    eye = {s: np.eye(4, dtype=np.float32) for s in gts}
+    np.savez(os.path.join(root, "test_transformations.npz"), transformations={
+        "ref_transformations_list": eye, "src_transformations_list": dict(eye),
+        "gt_transformations_list": gts,
+    })
+    return gts
+
+
+def cli_train_eval_phase(dev, per_pair):
+    """12. train and evaluate through the CLIs. (a) `trainval --synthetic`
+    at make_cfg() on 8 pool pairs with 4 validation pairs, --distributed at
+    world 1 on NCCL (explicit coordinator), one epoch, then `--resume
+    --max_epoch 2` in a new process: 16 logged steps, every grad_finite 1,
+    finite losses, the snapshot at step 16; per epoch the prep (wait),
+    proc (step) and the prefetch thread's build seconds (epoch 2 replays
+    the batch cache). (b) `ddp_check` with 2 gloo ranks on this card at
+    make_tiny_cfg() (pairs 0 and 1, 2 steps): the ranks bit-equal after 2
+    steps, their step-1 metrics equal to a 1-rank run's in this process;
+    the all-reduce's ms. (c) a fake ScanNet-GSReg tree (`write_scannet_tree`):
+    `trainval --data_root` for one epoch at make_cfg() with augmentation
+    (every step finite), then `eval_scannet --weights` (the trained
+    checkpoint) in this process with the launch counts zeroed before and
+    read after (per scene 13 K1, 14 K2, 1 fused K3), every scene under 5
+    degrees RRE; then `--fine --fine_steps 20` on one scene: a finite
+    transform, K4-K6 launched. (d) `eval_synthetic` on phase 2's 8
+    held-out pairs: recall_RMSE<0.2 = 1.0."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from gaussreg_tpu_torch.config import make_cfg
+    from gaussreg_tpu_torch.ops import _cuda
+    from gaussreg_tpu_torch.tools import ddp_check, eval_scannet, eval_synthetic
+
+    cfg = make_cfg()
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) synthetic training with a resume, NCCL at world 1
+        out = os.path.join(tmp, "synthetic")
+        common = ["--synthetic", "--synthetic_pairs", "8", "--val_pairs", "4", "--log_steps", "1",
+                  "--output_dir", out, "--distributed", "--num_processes", "1",
+                  "--process_id", "0"]
+        dt1, _ = run_tool("trainval", *common, "--coordinator", f"localhost:{free_port()}",
+                          "--max_epoch", "1")
+        dt2, _ = run_tool("trainval", *common, "--coordinator", f"localhost:{free_port()}",
+                          "--max_epoch", "2", "--resume")
+        log(f"trainval: epoch 1 in {dt1:.2f} s, the resumed epoch 2 in {dt2:.2f} s "
+            "(each its own process, NCCL at world 1)")
+        with open(os.path.join(out, "train.log")) as f:
+            if f.read().count("devices=1 global_batch=1") != 2:
+                raise AssertionError("trainval: the log does not read devices=1 twice")
+        check_train_log("trainval", os.path.join(out, "train.log"), 16, 16)
+
+        # (b) two gloo ranks on this card against one process
+        runs = {}
+        for world in (2, 1):
+            d = os.path.join(tmp, f"ddp{world}")
+            argv = ["--world", str(world), "--steps", "2", "--output_dir", d, "--backend", "gloo"]
+            if ddp_check.main(argv) != 0:
+                raise AssertionError(f"ddp_check --world {world} failed")
+            runs[world] = [dict(np.load(os.path.join(d, f"rank{r}.npz"))) for r in range(world)]
+        r0, r1 = runs[2]
+        unequal = [k for k in r0 if k.split(":")[1:2] in (["param"], ["grad"], ["metric"])
+                   and not np.array_equal(r0[k], r1[k])]
+        metrics = sorted(k for k in r0 if k.startswith("step1:metric:"))
+        off = {k: (float(r0[k]), float(runs[1][0][k])) for k in metrics
+               if float(r0[k]) != float(runs[1][0][k])}
+        reduce_ms = [float(r0[f"step{s}:allreduce_ms"]) for s in (1, 2)]
+        step_s = [float(r0[f"step{s}:seconds"]) for s in (1, 2)]
+        log(f"ddp_check: 2 gloo ranks on one card, make_tiny_cfg(), 2 steps: leaves unequal "
+            f"between the ranks {unequal}; step-1 metrics against 1 rank, unequal {off}; "
+            f"gradient all-reduce {reduce_ms[0]:.3f}, {reduce_ms[1]:.3f} ms; step "
+            f"{step_s[0]:.3f}, {step_s[1]:.3f} s (rank 0); 1 rank: step "
+            f"{float(runs[1][0]['step2:seconds']):.3f} s")
+        if unequal or off or int(r0["skipped"]) or int(r0["step"]) != 2:
+            raise AssertionError(f"ddp_check: ranks unequal {unequal}, step 1 against one rank "
+                                 f"{off}, skipped {int(r0['skipped'])}")
+
+        # (c) the ScanNet-GSReg path
+        root = os.path.join(tmp, "scannet")
+        gts = write_scannet_tree(root, cfg, range(20_000_200, 20_000_204))
+        out = os.path.join(tmp, "scannet_run")
+        dt, _ = run_tool("trainval", "--data_root", root, "--max_epoch", "1", "--log_steps", "1",
+                         "--output_dir", out)
+        log(f"trainval --data_root: one epoch (2 train pairs, augmented; 2 test pairs "
+            f"validated) in {dt:.2f} s")
+        check_train_log("trainval --data_root", os.path.join(out, "train.log"), 2, 2)
+
+        def evaluate(*extra):
+            est_dir = os.path.join(tmp, "eval")
+            _cuda.reset_launch_counts()
+            text = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(text):
+                rc = eval_scannet.main(["--scannet_path", root, "--weights", CKPT,
+                                        "--output_path", est_dir, *extra])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = _cuda.launch_counts()
+            est = np.load(os.path.join(est_dir, "estimated_transform.npz"),
+                          allow_pickle=True)["estimated_transform_list"].item()
+            if rc != 0 or "rse < 0.2:" not in text.getvalue():
+                raise AssertionError(f"eval_scannet {extra}: rc {rc}\n{text.getvalue()[-2000:]}")
+            return est, counts, dt, text.getvalue()
+
+        est, counts, dt, text = evaluate()
+        errs = {s: rot_err(t, gts[s]) for s, t in est.items()}
+        log(f"eval_scannet: {len(est)} scenes in {dt:.3f} s ({dt / len(est):.3f} s/scene, "
+            f"host loading included); RRE {errs}; launches {counts}; printout "
+            f"{text.strip().splitlines()[-9:]}")
+        want = {name: n * len(gts) for name, n in per_pair.items()}
+        if set(est) != set(gts) or not all(e < 5.0 for e in errs.values()) or \
+                any(counts[k] != v for k, v in want.items()):
+            raise AssertionError(f"eval_scannet: RRE {errs}, launches {counts}, want {want}")
+
+        est, counts, dt, _ = evaluate("--fine", "--fine_steps", "20", "--limit_scenes", "1")
+        (scene, t), = est.items()
+        log(f"eval_scannet --fine --fine_steps 20: 1 scene in {dt:.3f} s, RRE "
+            f"{rot_err(t, gts[scene]):.3f} deg; launches {counts}")
+        if not np.isfinite(t).all() or not all(counts[k] > 0 for k in (
+                "rasterize_forward", "rasterize_backward", "segment_accumulate")):
+            raise AssertionError(f"eval_scannet --fine: {t}, launches {counts}")
+
+        # (d) eval_synthetic on phase 2's held-out pairs
+        transcript = os.path.join(tmp, "eval_transcript.json")
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            rc = eval_synthetic.main(["--weights", CKPT, "--pairs", "8", "--output", transcript])
+        dt = time.perf_counter() - t0
+        with open(transcript) as f:
+            summary = json.load(f)["summary"]
+        log(f"eval_synthetic: 8 pairs in {dt:.3f} s; {summary}")
+        if rc != 0 or summary["num_pairs"] != 8 or summary["recall_RMSE<0.2"] != 1.0:
+            raise AssertionError(f"eval_synthetic: rc {rc}, {summary}")
 
 
 def main() -> int:
@@ -1675,6 +1932,9 @@ def main() -> int:
     train = train_phase(dev)
     kernels[1]["train_forward_ms_per_step"] = train["fwd_ms"]
     kernels[1]["train_backward_ms_per_step"] = train["bwd_ms"]
+
+    # 12. train and evaluate through the CLIs
+    cli_train_eval_phase(dev, per_pair)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

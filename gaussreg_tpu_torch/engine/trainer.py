@@ -24,7 +24,9 @@ The train step averages the per-pair losses of a list of pairs and runs
 one backward. A non-finite gradient (read by one host sync per step)
 zeroes the gradients and the updates, but the optimizer update still runs:
 Adam's moments see `wd * p`, and the counts and the schedule advance, as
-in the JAX step.
+in the JAX step. In a process group (parallel/mesh.py) each rank steps
+its own pairs, and the step takes the gradients' mean across ranks before
+the guard and reduces the metrics, as the JAX step's sharded batch does.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from gaussreg_tpu_torch.device import DeviceLike, resolve_device
 from gaussreg_tpu_torch.models.losses import overall_loss
 from gaussreg_tpu_torch.models.metrics import evaluate_registration, inlier_ratio
 from gaussreg_tpu_torch.models.registration import GaussRegModel
+from gaussreg_tpu_torch.parallel.mesh import all_reduce_mean_, all_reduce_sum_, world_size
 
 Params = Dict[str, torch.Tensor]
 
@@ -264,19 +267,37 @@ def apply_gradients(tx: Optimizer, params: Params, opt_state, grads: Params):
     return opt_state, finite
 
 
+def pair_generator(device: DeviceLike, *key: int) -> torch.Generator:
+    """A generator of `device` seeded from the integers `key` (the train
+    CLI's (cfg.seed + 1, step, pair index in the global batch)), so that a
+    pair's draws do not depend on the rank that takes it or on the world
+    size, as the JAX CLI's per-pair keys (`jax.random.split(sub,
+    batch_size)`) do not."""
+    seed = int(np.random.SeedSequence(list(key)).generate_state(1, np.uint64)[0] >> 1)
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def make_train_step(model: GaussRegModel, cfg: Config, tx: Optimizer):
-    """train_step(state, batches, generator) -> (state, metrics): the mean
+    """train_step(state, batches, generators) -> (state, metrics): the mean
     of the pairs' losses, one backward, the NaN/Inf guard and the optimizer
-    update. `generator` (of the batches' device) draws each pair's GT node
-    pairs in turn."""
+    update. `generators` holds one generator per pair (of the batches'
+    device); each draws its pair's GT node pairs.
+
+    In a process group the gradients' mean across ranks is taken after the
+    backward and before the guard, so that every rank takes the same
+    decision and applies the same update; the metrics are reduced in one
+    flat tensor (global means, the global sum of vox_overflow). Without
+    one, nothing is communicated."""
 
     def train_step(state: TrainState, batches: Sequence[PairBatch],
-                   generator: torch.Generator) -> Tuple[TrainState, Dict[str, Any]]:
+                   generators: Sequence[torch.Generator]) -> Tuple[TrainState, Dict[str, Any]]:
+        if len(generators) != len(batches):
+            raise ValueError(f"{len(batches)} pairs but {len(generators)} generators")
         params = state.params
         for p in params.values():
             p.grad = None
         aux = []
-        for batch in batches:
+        for batch, generator in zip(batches, generators):
             out = model(batch, generator, train=True, with_transform=False)
             losses = dict(overall_loss(cfg, out, batch.transform))
             losses["PIR"] = _coarse_precision(cfg, out)
@@ -286,17 +307,24 @@ def make_train_step(model: GaussRegModel, cfg: Config, tx: Optimizer):
         loss.backward()
         grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
                  for n, p in params.items()}
+        all_reduce_mean_(grads.values())
         opt_state, finite = apply_gradients(tx, params, state.opt_state, grads)
         for p in params.values():
             p.grad = None
         mean = lambda key: torch.stack([a[key].detach().float() for a in aux]).mean()
+        local = torch.stack([loss.detach(), mean("c_loss"), mean("f_loss"), mean("PIR"),
+                             torch.stack([a["vox_overflow"] for a in aux]).sum().float()])
+        world = world_size()
+        if world > 1:
+            all_reduce_sum_(local)
+            local[:4] /= world
         metrics = {
-            "loss": loss.detach(),
-            "c_loss": mean("c_loss"),
-            "f_loss": mean("f_loss"),
-            "PIR": mean("PIR"),
+            "loss": local[0],
+            "c_loss": local[1],
+            "f_loss": local[2],
+            "PIR": local[3],
             "grad_finite": float(finite),
-            "vox_overflow": torch.stack([a["vox_overflow"] for a in aux]).sum().float(),
+            "vox_overflow": local[4],
         }
         return TrainState(params, opt_state, state.step + 1, state.skipped + (not finite)), metrics
 

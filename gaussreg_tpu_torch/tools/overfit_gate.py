@@ -48,6 +48,7 @@ def main(argv=None) -> int:
         create_train_state,
         make_eval_step,
         make_train_step,
+        pair_generator,
     )
     from gaussreg_tpu_torch.models.registration import create_model
 
@@ -83,10 +84,10 @@ def main(argv=None) -> int:
         return agg
 
     evaluate("step 0")
-    gen = torch.Generator(device=dev).manual_seed(1)
     t0 = time.time()
     for step in range(1, args.steps + 1):
-        state, metrics = train_step(state, [batches[(step - 1) % len(batches)]], gen)
+        state, metrics = train_step(state, [batches[(step - 1) % len(batches)]],
+                                    [pair_generator(dev, 1, step, 0)])
         if step % args.log_every == 0:
             m = {k: float(v) for k, v in metrics.items()}
             print(

@@ -41,6 +41,7 @@ def main(argv=None) -> int:
         create_train_state,
         make_eval_step,
         make_train_step,
+        pair_generator,
     )
     from gaussreg_tpu_torch.models.registration import create_model
 
@@ -74,10 +75,10 @@ def main(argv=None) -> int:
         return agg
 
     before = evaluate("before")
-    gen = torch.Generator(device=dev).manual_seed(1)
     t0 = time.time()
     for step in range(args.steps):
-        state, metrics = train_step(state, [batches[step % len(batches)]], gen)
+        state, metrics = train_step(state, [batches[step % len(batches)]],
+                                    [pair_generator(dev, 1, step, 0)])
         if step == 0:
             first_pir = float(metrics["PIR"])
         last_pir = float(metrics["PIR"])

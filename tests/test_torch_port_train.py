@@ -562,7 +562,7 @@ def test_train_step_moves_every_parameter_then_eval_step(train_pair):
     batches = make_synthetic_batch(cfg, [1], num_points=500, device="cpu")
     gen = torch.Generator().manual_seed(1)
     for _ in range(2):
-        state, metrics = step(state, batches, gen)
+        state, metrics = step(state, batches, [gen])
         assert metrics["grad_finite"] == 1.0
         assert set(metrics) == {"loss", "c_loss", "f_loss", "PIR", "grad_finite", "vox_overflow"}
         assert all(np.isfinite(float(v)) for v in metrics.values())
@@ -595,7 +595,7 @@ def test_train_step_skips_a_non_finite_gradient(train_pair):
         model.ot_alpha.fill_(float("nan"))
     start = {k: v.detach().clone() for k, v in state.params.items()}
     state, metrics = make_train_step(model, cfg, tx)(state, [train_pair["pb"]],
-                                                     torch.Generator().manual_seed(1))
+                                                     [torch.Generator().manual_seed(1)])
     assert metrics["grad_finite"] == 0.0 and state.skipped == 1 and state.step == 1
     for k, v in state.params.items():
         torch.testing.assert_close(v.detach(), start[k], rtol=0, atol=0, equal_nan=True)
