@@ -125,13 +125,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    `tools.eval_synthetic` on phase 2's 8 held-out pairs (recall_RMSE<0.2 =
    1.0).
 
+13. the library surface beyond the main path (`library_phase`): one
+   held-out pair's pyramid through the legacy select_kernel="pallas"
+   branch (K3's generic entry, 13 launches) equal to the fused route's,
+   both timed, its K3 calls held and timed; the brute-force radius_search
+   at N = M = 30 720 through K3's wide mode, equal to its plain version,
+   timed; K6's own signature (`segment_accumulate`) on one fine step's
+   gradient rows, bit-equal to its plain version on the host, timed beside
+   index_add_; a make_cfg()-width KPConvFPN forward at kernel_size 20 and
+   36 (the einsum route: 14 calls, no K2 launch); render_sharded with 2
+   gloo ranks on this card (200 000 gaussians, one 640x480 view, forward
+   and backward) against render, K4-K6 launched on each rank.
+
 Prints the build seconds, the card's name and power limit, a line per
 pair, a line per kernel call, the profiles, a {"kernels": [...]} JSON line
-listing all fourteen kernels (K1, K2, K3's two entries, K4-K6, P1's three,
-P2's four; K2's entry also carries its backward's time, and its forward's
-and backward's device ms in one profiled train step), the card's
-name and power limit again, and as the last line {"ok": true, "device":
-{...}}. Imports nothing of JAX.
+listing seventeen entries (K1, K2, K3's two entries, K4-K6, P1's three,
+P2's four, and from phase 13 K3's generic entry on the pallas pyramid, its
+wide mode and K6's generic entry; K2's entry also carries its backward's
+time, and its forward's and backward's device ms in one profiled train
+step), the card's name and power limit again, and as the last line
+{"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -793,19 +806,11 @@ def measure_accumulate(c5_calls, c6_calls, table_calls):
     return rows, tot
 
 
-def make_fine_scene(n, seed, dev):
-    """The full-width fine-registration scene: `n` random gaussians in a
-    2-unit cube, and the same model under the inverse of a small similarity
-    (scale 1.02, rotation vector (0.02, -0.015, 0.01), translation
-    (0.03, -0.02, 0.01)), the residual a coarse registration leaves.
-    Returns (ref, src, gt) with gt the transform fine_register should find."""
+def fine_scene_arrays(n, seed):
+    """The fine scene's numpy model: means (n, 3) in a 2-unit cube, linear
+    scales, unnormalized wxyz quaternions, opacities in (0, 1), SH degree 3
+    (n, 3, 16)."""
     import numpy as np
-    import torch
-    from gaussreg_tpu_torch.gs.fine_registration import (
-        gaussians_from_numpy,
-        transform_gaussians_device,
-    )
-    from gaussreg_tpu_torch.ops.transforms import exp_so3
 
     rng = np.random.default_rng(seed)
     means = rng.uniform(-1.0, 1.0, size=(n, 3))
@@ -815,7 +820,23 @@ def make_fine_scene(n, seed, dev):
     sh = np.zeros((n, 3, 16))
     sh[:, :, 0] = rng.uniform(-1, 1, size=(n, 3))
     sh[:, :, 1:] = rng.normal(scale=0.05, size=(n, 3, 15))
-    ref = gaussians_from_numpy(means, scales, quats, opac, sh, device=dev)
+    return means, scales, quats, opac, sh
+
+
+def make_fine_scene(n, seed, dev):
+    """The full-width fine-registration scene: `n` random gaussians in a
+    2-unit cube, and the same model under the inverse of a small similarity
+    (scale 1.02, rotation vector (0.02, -0.015, 0.01), translation
+    (0.03, -0.02, 0.01)), the residual a coarse registration leaves.
+    Returns (ref, src, gt) with gt the transform fine_register should find."""
+    import torch
+    from gaussreg_tpu_torch.gs.fine_registration import (
+        gaussians_from_numpy,
+        transform_gaussians_device,
+    )
+    from gaussreg_tpu_torch.ops.transforms import exp_so3
+
+    ref = gaussians_from_numpy(*fine_scene_arrays(n, seed), device=dev)
     gt = torch.eye(4, device=dev)
     gt[:3, :3] = 1.02 * exp_so3(torch.tensor([0.02, -0.015, 0.01], device=dev))
     gt[:3, 3] = torch.tensor([0.03, -0.02, 0.01], device=dev)
@@ -1636,6 +1657,316 @@ def cli_train_eval_phase(dev, per_pair):
             raise AssertionError(f"eval_synthetic: rc {rc}, {summary}")
 
 
+def accumulate_generic_cost(rows, gid, num_out):
+    """K6's own signature: the rows (64 B each) and ids read once, the
+    (num_out, 16) output written once; one f32 add per row and channel
+    whose id lies in the table."""
+    live = float(((gid >= 0) & (gid < num_out)).sum())
+    return (rows.shape[0] * (64 + 4) + num_out * 64, live * 16,
+            f"R={rows.shape[0]} num_out={num_out}")
+
+
+def radius_search_plain():
+    """The brute-force radius search with K3's plain version in place of the
+    kernel (same device, same distances)."""
+    from gaussreg_tpu_torch.ops import neighbors as nb
+    from gaussreg_tpu_torch.ops import select_k
+
+    def run(*args, **kw):
+        with Swap(nb, "select_min_k", select_k.select_min_k_plain):
+            return nb.radius_search(*args, **kw)
+
+    return run
+
+
+def compare_sharded(rec, out, grads, tol_rgb=5e-4, tol_depth=2e-3, tol_grad=2e-3):
+    """render_sharded's gathered image and gradients (one rank's record)
+    against render's: rgb and T within 5e-4, depth within 2e-3, gradients
+    within 2e-3 of each gradient's max (the JAX package's limits for its
+    render_sharded). A pixel where the slice's shifted screen coordinates
+    round otherwise may cross the 1/255 alpha cut: at most 0.1 % of the
+    pixels may exceed the limit, none by more than 1/255 of a colour (or of
+    the depth range). Returns the max errors and the pixels past the limit."""
+    import numpy as np
+
+    errs, npix = {}, out.rgb.shape[0] * out.rgb.shape[1]
+    errs["pixels_equal"] = all(
+        np.array_equal(rec[k], getattr(out, k).detach().cpu().numpy())
+        for k in ("rgb", "depth", "transmittance"))
+    for key, want, tol in (("rgb", out.rgb, tol_rgb), ("depth", out.depth, tol_depth),
+                           ("transmittance", out.transmittance, tol_rgb)):
+        want = want.detach().cpu().numpy()
+        diff = np.abs(rec[key] - want)
+        per_pixel = diff.reshape(npix, -1).max(axis=1)
+        over = int((per_pixel > tol).sum())
+        cap = (1 / 255 + tol) * (np.abs(want).max() if key == "depth" else 1.0)
+        errs[key] = (float(diff.max()), over)
+        if over > 1e-3 * npix or diff.max() > cap:
+            raise AssertionError(f"render_sharded {key}: max err {diff.max()}, {over} pixels "
+                                 f"past {tol}")
+    for name, g in grads.items():
+        g = g.cpu().numpy()
+        scale = np.abs(g).max() + 1e-6
+        err = float(np.abs(rec[f"grad:{name}"] - g).max() / scale)
+        errs[f"grad:{name}"] = err
+        if not err <= tol_grad:
+            raise AssertionError(f"render_sharded gradient {name}: {err} of its max > {tol_grad}")
+    return errs
+
+
+# render_sharded's comparison with render: a per-gaussian tile cap that
+# drops no pair of the fine scene's first view (at the default 16 both drop
+# pairs there, and different ones: the slices cap each slice's part of a
+# bbox, the JAX package's per-slice cap accounting)
+SHARDED_MAX_TILES = 64
+
+
+def library_phase(cfg, dev, pair, fine_ref, cams):
+    """13. the library surface beyond the main path, at full width.
+    (a) `make_pair_batch` on one held-out pair with every grid search
+    through the legacy select_kernel="pallas" branch (K3's generic entry
+    over each query's window distances; launch counts zeroed before and read
+    after: 13 select_min_k launches, no window_select_idx), its pyramid
+    equal to the fused route's index for index; both pyramids timed (host
+    clock, a device sync, second of two runs); the 13 captured K3 calls held
+    against the plain version and timed beside torch.topk and their bound.
+    (b) the brute-force radius_search at N = M = 30 720 (level 0 of that
+    pair's reference cloud at the level-0 radius, limit 35) through K3's wide
+    mode (30 launches of 1024 query rows), equal to the same search with
+    K3's plain version on the card; the search timed; its 30 K3 calls held
+    and timed as in (a). (c) K6's own signature (`segment_accumulate`: a
+    stable id sort and the generic entry) on one fine step's gradient rows
+    and compacted ids per view, equal bit for bit to
+    segment_accumulate_plain on the host, timed (sort included) beside its
+    plain version on the card and index_add_. (d) a make_cfg()-width
+    KPConvFPN forward on that pair's pyramid at kernel_size 20 and 36
+    (seeded flax-distributed weights): 14 einsum-route calls and no K2
+    launch each, finite outputs of the expected shapes, timed. (e)
+    render_sharded with 2 gloo ranks on this card
+    (tools.render_sharded_check) on the fine scene's reference model, one
+    640x480 view, 32x32 tiles, SH degree 3, a tile cap that drops no pair
+    (SHARDED_MAX_TILES), forward and backward, against render in this
+    process (`compare_sharded`); K4/K5/K6 launches, forward
+    and backward ms and the gradient all-reduce's ms per rank.
+    Returns the three kernel entries."""
+    import functools
+
+    import numpy as np
+    import torch
+    from gaussreg_tpu_torch.data import pipeline as pipeline_mod
+    from gaussreg_tpu_torch.gs import fine_registration as fine_mod
+    from gaussreg_tpu_torch.gs.rasterizer import accumulate
+    from gaussreg_tpu_torch.gs.rasterizer import kernels as raster_mod
+    from gaussreg_tpu_torch.gs.rasterizer.render import render
+    from gaussreg_tpu_torch.models import kpconv as kpconv_mod
+    from gaussreg_tpu_torch.models.backbone import KPConvFPN
+    from gaussreg_tpu_torch.ops import _cuda, kpconv_kernel, select_k
+    from gaussreg_tpu_torch.ops import neighbors as nb
+    from gaussreg_tpu_torch.tools import render_sharded_check as rsc
+
+    entries = []
+    rp, rf, sp, sf, m = pair
+
+    # (a) the pyramid through the pallas branch
+    def batch(kern):
+        search = functools.partial(nb.grid_radius_search, select_kernel=kern)
+        with Swap(pipeline_mod, "grid_radius_search", search):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            b = pipeline_mod.make_pair_batch(cfg, rp, rf, sp, sf, m, device=dev)
+            torch.cuda.synchronize()
+            return b, (time.perf_counter() - t0) * 1e3
+
+    batch("fused")
+    fused, t_fused = batch("fused")
+    batch("pallas")
+    _cuda.reset_launch_counts()
+    with Capture(nb, "select_min_k") as c3:
+        pallas, t_pallas = batch("pallas")
+    counts = _cuda.launch_counts()
+    pallas_launches = counts["select_min_k"]
+    for field in ("neighbors", "subsampling", "upsampling"):
+        for lvl, (a, b) in enumerate(zip(getattr(fused.pyramid, field),
+                                         getattr(pallas.pyramid, field))):
+            if not torch.equal(a, b):
+                raise AssertionError(f"pyramid {field}[{lvl}]: the pallas route differs from "
+                                     f"the fused route in {(a != b).sum().item()} entries")
+    if int(fused.pyramid.search_overflow) != int(pallas.pyramid.search_overflow):
+        raise AssertionError("the two routes count another search overflow")
+    log(f"pyramid (13 grid searches, one make_cfg() pair): pallas route (K3 select_min_k) "
+        f"equal to the fused route (K1) index for index; {t_pallas:.3f} ms against "
+        f"{t_fused:.3f} ms (host clock, device synced, make_pair_batch); launches {counts}")
+    if pallas_launches != 13 or counts["window_select_idx"] != 0:
+        raise AssertionError(f"the pallas pyramid launched {counts}")
+    rows, tot = measure("select_min_k (pallas pyramid)", c3.calls, select_k.select_min_k,
+                        select_k.select_min_k_plain, exact, select_topk, select_cost, "f32",
+                        plain_reps=2)
+    del c3
+    for row in rows:
+        log(row)
+    entry = kernel_entry("select_min_k:pallas_pyramid", "gaussreg_tpu_torch/csrc/select_k.cu",
+                         "gaussreg_tpu/ops/select_k.py:88", pallas_launches, tot, "f32")
+    entry["pyramid_ms"] = {"pallas": t_pallas, "fused": t_fused}
+    entries.append(entry)
+    del pallas
+
+    # (b) the brute-force search at level-0 width: K3's wide mode
+    pts, msk = fused.pyramid.points[0][0], fused.pyramid.masks[0][0]
+    radius, limit = cfg.backbone.init_radius, cfg.capacity.neighbor_limits[0]
+    args = (pts, pts, msk, msk, radius, limit)
+    _cuda.reset_launch_counts()
+    with Capture(nb, "select_min_k") as cw:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = nb.radius_search(*args)
+        torch.cuda.synchronize()
+        t_search = (time.perf_counter() - t0) * 1e3
+    counts = _cuda.launch_counts()
+    wide_launches = counts["select_min_k_wide"]
+    want = radius_search_plain()(*args)
+    if not torch.equal(got, want):
+        raise AssertionError(f"radius_search through the wide mode differs from its plain "
+                             f"version in {(got != want).sum().item()} entries")
+    t_search2 = cuda_ms(lambda: nb.radius_search(*args), reps=3)
+    t_search_plain = cuda_ms(lambda: radius_search_plain()(*args), reps=2)
+    found = float((got < pts.shape[0]).float().sum(dim=1).mean())
+    log(f"radius_search N = M = {pts.shape[0]} (r={radius}, limit {limit}): wide-mode launches "
+        f"{wide_launches}, equal to its plain version; {t_search:.3f} ms (host clock), "
+        f"{t_search2:.3f} ms (events, mean of 3), with the plain selection {t_search_plain:.3f} "
+        f"ms; {found:.2f} neighbours per query")
+    if wide_launches != -(-pts.shape[0] // 1024) or counts["select_min_k"] != 0:
+        raise AssertionError(f"radius_search launched {counts}")
+    rows, tot = measure("select_min_k_wide", cw.calls, select_k.select_min_k,
+                        select_k.select_min_k_plain, exact, select_topk, select_cost, "f32",
+                        plain_reps=2)
+    del cw
+    log(rows[0])
+    log(f"select_min_k_wide: {len(rows)} calls, shapes as above")
+    entry = kernel_entry("select_min_k_wide", "gaussreg_tpu_torch/csrc/select_k.cu",
+                         "gaussreg_tpu/ops/select_k.py:88", wide_launches, tot, "f32")
+    entry["radius_search_ms"] = t_search2
+    entries.append(entry)
+    del fused
+
+    # (c) K6's own signature on one fine step's rows
+    with Capture(raster_mod, "rasterize_backward") as c5, \
+            Capture(raster_mod, "accumulate_pairs") as c6:
+        fine_mod.fine_register(fine_ref, fine_ref, torch.eye(4), cams, num_steps=1)
+    torch.cuda.synchronize()
+    nv = len(cams)
+    calls = []
+    for (a5, _), (a6, _) in zip(c5.calls[-nv:], c6.calls[-nv:]):
+        sorted_gid, bwd_blocks = a5[1], a5[5]
+        grad_rows, _, _, starts, offs, _, num_out = a6
+        ids = raster_mod.compacted_gids(sorted_gid, starts, offs, bwd_blocks, drop_id=num_out)
+        calls.append(((grad_rows, ids.to(torch.int32), num_out), {}))
+    del c5, c6
+    _cuda.reset_launch_counts()
+    for (rows_, ids, num_out), _ in calls:
+        out = accumulate.segment_accumulate(rows_, ids, num_out)
+        if not torch.equal(out.cpu(), accumulate.segment_accumulate_plain(rows_.cpu(), ids.cpu(),
+                                                                          num_out)):
+            raise AssertionError("segment_accumulate differs from its plain version")
+    generic_launches = _cuda.launch_counts()["segment_accumulate_generic"]
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, err=0.0, bytes=0.0, ops=0.0)
+    for (rows_, ids, num_out), _ in calls:
+        idx = torch.where((ids >= 0) & (ids < num_out), ids, num_out).long()
+        index_add = lambda: torch.zeros((num_out + 1, 16), device=dev).index_add_(0, idx, rows_)
+        entry_fn = lambda: accumulate.segment_accumulate(rows_, ids, num_out)
+        t_k = (cuda_ms(entry_fn, reps=20, warmup=3) + cuda_ms(entry_fn, reps=20, warmup=3)) / 2
+        t_l = (cuda_ms(index_add, reps=20, warmup=3) + cuda_ms(index_add, reps=20, warmup=3)) / 2
+        t_p = cuda_ms(lambda: accumulate.segment_accumulate_plain(rows_, ids, num_out), reps=5)
+        nbytes, ops, shape = accumulate_generic_cost(rows_, ids, num_out)
+        log(f"segment_accumulate_generic {shape}: equal, kernel (sort included)={t_k:.4f}ms "
+            f"plain={t_p:.4f}ms index_add_={t_l:.4f}ms bound={bound(nbytes, ops, 'f32')[0]:.4f}ms")
+        for key, v in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l), ("bytes", nbytes),
+                       ("ops", ops)):
+            tot[key] += v
+    del calls
+    if generic_launches != nv:
+        raise AssertionError(f"segment_accumulate launched {generic_launches} times for {nv}")
+    entries.append(kernel_entry("segment_accumulate_generic",
+                                "gaussreg_tpu_torch/csrc/segment_accumulate.cu",
+                                "gaussreg_tpu/gs/rasterizer/accumulate.py:131", generic_launches,
+                                tot, "f32"))
+
+    # (d) KPConv past 16 kernel points at full width
+    b = pipeline_mod.make_pair_batch(cfg, rp, rf, sp, sf, m, device=dev)
+    bc = cfg.backbone
+    for k in (20, 36):
+        model = KPConvFPN(b.features.shape[-1], bc.output_dim, bc.init_dim, k, bc.init_radius,
+                          bc.init_sigma, bc.group_norm)
+        model.reset_parameters(torch.Generator().manual_seed(k))
+        model = model.to(dev)
+        with torch.no_grad():
+            model(b.features, b.pyramid)  # warm-up
+            einsum, k2 = kpconv_mod.EinsumRoute.calls, kpconv_kernel.KERNEL.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            feats_f, feats_c = model(b.features, b.pyramid)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) * 1e3
+        calls_e = kpconv_mod.EinsumRoute.calls - einsum
+        k2_launches = kpconv_kernel.KERNEL.launches - k2
+        shapes = (tuple(feats_f.shape), tuple(feats_c.shape))
+        finite = bool(torch.isfinite(feats_f).all() and torch.isfinite(feats_c).all())
+        log(f"KPConvFPN kernel_size {k} at make_cfg() width: forward {dt:.3f} ms; einsum-route "
+            f"calls {calls_e}, K2 launches {k2_launches}; outputs {shapes}, finite {finite}")
+        if calls_e != 14 or k2_launches != 0 or not finite or shapes != (
+                (2, cfg.capacity.levels[1], bc.output_dim), (2, cfg.capacity.levels[4],
+                                                             bc.init_dim * 32)):
+            raise AssertionError(f"KPConvFPN kernel_size {k}: {calls_e} einsum calls, "
+                                 f"{k2_launches} K2 launches, {shapes}, finite {finite}")
+        del model, feats_f, feats_c
+    del b
+
+    # (e) render_sharded: 2 gloo ranks on this card
+    arrays = [np.asarray(getattr(fine_ref, f).cpu().numpy(), np.float32)
+              for f in ("means", "scales", "quats", "opacities", "sh_coeffs")]
+    cam = cams[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        rsc.write_scene(os.path.join(tmp, "scene.npz"), *arrays, cam)
+        t0 = time.perf_counter()
+        rc = rsc.main(["--scene", os.path.join(tmp, "scene.npz"), "--world", "2", "--backend",
+                       "gloo", "--output_dir", tmp, "--tile", str(FINE_TILE),
+                       "--max_tiles_per_gaussian", str(SHARDED_MAX_TILES)])
+        dt = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError("render_sharded_check failed")
+        recs = [dict(np.load(os.path.join(tmp, f"rank{r}.npz"))) for r in range(2)]
+    params = [torch.as_tensor(a, device=dev).requires_grad_(True) for a in arrays]
+    w2c = cam.w2c.to(dev).clone().requires_grad_(True)
+    out = render(*params, cam._replace(w2c=w2c), tile_h=FINE_TILE, tile_w=FINE_TILE,
+                 max_tiles_per_gaussian=SHARDED_MAX_TILES)
+    if int(out.overflow) or any(int(rec["overflow"]) for rec in recs):
+        raise AssertionError(f"render_sharded comparison: pairs dropped by the tile cap "
+                             f"({int(out.overflow)} by render, {int(recs[0]['overflow'])} by the "
+                             f"slices); raise SHARDED_MAX_TILES")
+    loss = (torch.sum(out.rgb * rsc.loss_weights(cam.height, cam.width, dev))
+            + 0.3 * torch.sum(out.transmittance))
+    loss.backward()
+    grads = dict(zip(rsc.PARAMS + ("w2c",), [p.grad for p in params] + [w2c.grad]))
+    errs = compare_sharded(recs[0], out, grads)
+    for key in ("rgb", "depth", "transmittance", *[f"grad:{n}" for n in grads]):
+        if not np.array_equal(recs[0][key], recs[1][key]):
+            raise AssertionError(f"render_sharded: the ranks disagree on {key}")
+    kinds = ("rasterize_forward", "rasterize_backward", "segment_accumulate")
+    for r, rec in enumerate(recs):
+        launches = {k: int(rec[f"launches:{k}"]) for k in kinds}
+        log(f"render_sharded rank {r} (rows {tuple(int(x) for x in rec['rows'])}): launches "
+            f"{launches}, forward {float(rec['fwd_ms']):.3f} ms, backward "
+            f"{float(rec['bwd_ms']):.3f} ms, gradient all-reduce "
+            f"({int(rec['gradient_floats'])} floats, gloo) {float(rec['allreduce_ms']):.3f} ms; "
+            f"pairs {int(rec['num_pairs'])} (render: {int(out.num_pairs)}), overflow "
+            f"{int(rec['overflow'])}")
+        if not all(v >= 1 for v in launches.values()):
+            raise AssertionError(f"render_sharded rank {r} did not launch K4-K6: {launches}")
+    log(f"render_sharded: 2 gloo ranks, {arrays[0].shape[0]} gaussians, one {cam.width}x"
+        f"{cam.height} view, against render: max errors {errs}; the two processes took "
+        f"{dt:.2f} s")
+    return entries
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--pairs", type=int, default=8, help="held-out pairs to register")
@@ -1935,6 +2266,9 @@ def main() -> int:
 
     # 12. train and evaluate through the CLIs
     cli_train_eval_phase(dev, per_pair)
+
+    # 13. the library surface beyond the main path
+    kernels += library_phase(cfg, dev, pairs[-1][1], ref_g, cams[:1])
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

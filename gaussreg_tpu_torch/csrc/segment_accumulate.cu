@@ -30,6 +30,20 @@
 // row-granular (64 B of a 128 B line) and a gaussian's rows are scattered
 // over the buffer, so the loads are latency-bound: 16 of them are in flight
 // per lane.
+//
+// Second entry, gaussreg_segment_accumulate: the TPU kernel's own
+// signature, out[g] = the sum of rows[i] with gid[i] == g for g in
+// [0, num_out). The wrapper sorts the ids stably first (as the JAX function
+// sorts them outside its kernel with lax.sort(is_stable=True)) and hands
+// the sorted ids and the permutation. One half-warp per output row, one
+// lane per channel: a binary search of the sorted ids finds the row's run
+// [lo, hi), and the lanes add rows[perm[i]] for i in [lo, hi) in order.
+// A stable sort keeps a run in row order, so the sum is the one a
+// sequential scatter-add in row order gives, bit for bit; an empty run
+// writes +0.0. Ids outside [0, num_out) fall in no run and are dropped.
+// Bound: bytes. The rows (64 B each), the sorted ids and the permutation
+// read once, the num_out x 64 B output written once; the row gather is
+// row-granular, as in the first entry.
 
 #include <cuda_runtime.h>
 
@@ -101,6 +115,30 @@ accumulate_pairs_kernel(const float* __restrict__ grad_rows,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+segment_accumulate_kernel(const float* __restrict__ rows,
+                          const int* __restrict__ gid_sorted,
+                          const long long* __restrict__ perm,
+                          float* __restrict__ out, int num_out, int n) {
+  const int lane = threadIdx.x & 15;
+  const long long g = (long long)blockIdx.x * kHalfWarps + (threadIdx.x >> 4);
+  if (g >= num_out) return;  // no shuffle or barrier below
+  // lo: the first i with gid_sorted[i] >= g; hi: the first with > g
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (gid_sorted[mid] < g) lo = mid + 1; else hi = mid;
+  }
+  int end = lo, top = n;
+  while (end < top) {
+    const int mid = (end + top) >> 1;
+    if (gid_sorted[mid] <= g) end = mid + 1; else top = mid;
+  }
+  float acc = 0.0f;
+  for (int i = lo; i < end; ++i) acc += __ldg(rows + (size_t)perm[i] * kNchan + lane);
+  out[(size_t)g * kNchan + lane] = acc;
+}
+
 }  // namespace
 
 // out (num_out x 16 floats) is zeroed here first: rows that no table row
@@ -128,5 +166,16 @@ extern "C" int gaussreg_accumulate_pairs(const float* grad_rows,
   accumulate_pairs_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
       grad_rows, slot_pos, row_gid, starts, offs, out, n_rows, mt, num_tiles,
       cap);
+  return (int)cudaGetLastError();
+}
+
+// gid_sorted: the n ids sorted stably; perm: the row of each sorted id.
+extern "C" int gaussreg_segment_accumulate(const float* rows, const int* gid_sorted,
+                                           const long long* perm, float* out, int num_out,
+                                           int n, void* stream) {
+  if (num_out <= 0 || n < 0) return (int)cudaErrorInvalidValue;
+  const int blocks = (num_out + kHalfWarps - 1) / kHalfWarps;
+  segment_accumulate_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      rows, gid_sorted, perm, out, num_out, n);
   return (int)cudaGetLastError();
 }

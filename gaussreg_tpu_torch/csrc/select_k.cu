@@ -38,6 +38,24 @@
 // k <= 4 (the register list).
 // Bound: P*W*W*4 bytes read and 2*P*W*4 written, 17.0 MB at P = 256,
 // W = 128: ~5.1 us at 3.35 TB/s.
+//
+// Third entry, gaussreg_select_min_k_wide: select_min_k for rows too wide
+// for the first entry's shared-memory copy of a row (W * 8 bytes of keys
+// above kMaxSmem, W > 25 600): the brute-force neighbour searches at
+// level-0 widths (W = N support points, 30 720 at make_cfg()). Exact in
+// the way of the JAX package's two-stage top_k (ops/neighbors.py:400-408):
+// stage 1 takes the k smallest keys of each chunk of kWideChunk columns
+// (one warp per (row, chunk), the first entry's rounds on the chunk's
+// keys), stage 2 the k smallest of the row's nchunks * k chunk winners
+// (one warp per row). The winners of the row are among the winners of
+// their chunks, and the keys carry the row's flat positions, so the order
+// and the ties are those of the first entry. A chunk narrower than k pads
+// its list with the empty key, which sorts after every real key. The
+// chunk winners go to a scratch buffer that the wrapper allocates
+// (R * nchunks * k keys).
+// Bound: the row read once (R*W*4 bytes) and R*k*8 written; stage 1 does
+// k warp-wide minimum rounds per chunk, which is what bounds it at k = 35
+// (the selection rounds, not the bytes).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -84,6 +102,82 @@ __global__ void select_min_k_kernel(const float* __restrict__ x,
       pos_out[row * k + j] = pos;
     }
   }
+}
+
+constexpr int kWideChunk = 2048;
+
+// Stage 1 of the wide mode: the k smallest keys of each kWideChunk-column
+// chunk of each row, kNone past the chunk's width.
+__global__ void chunk_min_k_kernel(const float* __restrict__ x,
+                                   unsigned long long* __restrict__ cand,
+                                   int num_rows, int w, int nchunks, int k) {
+  extern __shared__ unsigned long long smem_keys[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long item = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (item >= (long long)num_rows * nchunks) return;  // no block-wide barrier below
+  const long long row = item / nchunks;
+  const int c0 = (int)(item % nchunks) * kWideChunk;
+  const int cw = min(kWideChunk, w - c0);
+  unsigned long long* keys = smem_keys + (size_t)warp * kWideChunk;
+  const float* xr = x + (size_t)row * w + c0;
+
+  warp_select::LaneTop4 top;
+  for (int i = lane; i < cw; i += 32) {
+    const unsigned long long key =
+        ((unsigned long long)ordered_bits(xr[i]) << 32) | (unsigned)(c0 + i);
+    keys[i] = key;
+    top.insert(key);
+  }
+  __syncwarp();
+
+  const auto key_at = [keys](int i) { return keys[i]; };
+  unsigned long long* out = cand + (size_t)item * k;
+  for (int j = 0; j < k; ++j) {  // j < cw is the same on every lane
+    const unsigned long long best =
+        j < cw ? warp_select::next_smallest(top, lane, cw, key_at) : warp_select::kNone;
+    if (lane == 0) out[j] = best;
+  }
+}
+
+// Stage 2: the k smallest of a row's ncand chunk winners; the values are
+// read back from x at the winning positions.
+__global__ void merge_min_k_kernel(const float* __restrict__ x,
+                                   const unsigned long long* __restrict__ cand,
+                                   float* __restrict__ vals, int* __restrict__ pos_out,
+                                   int num_rows, int w, int ncand, int k) {
+  extern __shared__ unsigned long long smem_keys[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (row >= num_rows) return;
+  unsigned long long* keys = smem_keys + (size_t)warp * ncand;
+  const unsigned long long* cr = cand + (size_t)row * ncand;
+
+  warp_select::LaneTop4 top;
+  for (int i = lane; i < ncand; i += 32) {
+    const unsigned long long key = cr[i];
+    keys[i] = key;
+    top.insert(key);
+  }
+  __syncwarp();
+
+  const auto key_at = [keys](int i) { return keys[i]; };
+  for (int j = 0; j < k; ++j) {
+    const unsigned long long best = warp_select::next_smallest(top, lane, ncand, key_at);
+    if (lane == 0) {
+      const int pos = (int)(best & 0xffffffffu);
+      vals[row * k + j] = x[(size_t)row * w + pos];
+      pos_out[row * k + j] = pos;
+    }
+  }
+}
+
+// Warps per block for per-warp shared memory of `bytes` (at most 8).
+int warps_for(long long bytes) {
+  int warps = 8;
+  while (warps > 1 && warps * bytes > kMaxSmem) --warps;
+  return warps;
 }
 
 constexpr int kFusedMaxW = 192;
@@ -209,8 +303,7 @@ extern "C" int gaussreg_select_min_k(const float* x, float* vals, int* pos,
   if (num_rows <= 0 || w <= 0 || k <= 0 || k > w || row_bytes > kMaxSmem) {
     return (int)cudaErrorInvalidValue;
   }
-  int warps = 8;
-  while (warps > 1 && warps * row_bytes > kMaxSmem) --warps;
+  const int warps = warps_for(row_bytes);
   const size_t smem = (size_t)warps * row_bytes;
   cudaError_t err = cudaFuncSetAttribute(
       select_min_k_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -219,5 +312,39 @@ extern "C" int gaussreg_select_min_k(const float* x, float* vals, int* pos,
   const int blocks = (num_rows + warps - 1) / warps;
   select_min_k_kernel<<<blocks, warps * 32, smem, (cudaStream_t)stream>>>(
       x, vals, pos, num_rows, w, k);
+  return (int)cudaGetLastError();
+}
+
+// The wide mode: `cand` is scratch of num_rows * ceil(w / kWideChunk) * k
+// keys. Refuses widths the first entry takes, and k whose chunk winners
+// do not fit in shared memory.
+extern "C" int gaussreg_select_min_k_wide(const float* x, float* vals, int* pos,
+                                          unsigned long long* cand, int num_rows,
+                                          int w, int k, void* stream) {
+  const int nchunks = (w + kWideChunk - 1) / kWideChunk;
+  const long long cand_bytes = (long long)nchunks * k * 8;
+  if (num_rows <= 0 || (long long)w * 8 <= kMaxSmem || k <= 0 || k > w ||
+      cand_bytes > kMaxSmem) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  const int warps1 = warps_for((long long)kWideChunk * 8);
+  const size_t smem1 = (size_t)warps1 * kWideChunk * 8;
+  cudaError_t err = cudaFuncSetAttribute(
+      chunk_min_k_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
+  if (err != cudaSuccess) return (int)err;
+  const long long items = (long long)num_rows * nchunks;
+  chunk_min_k_kernel<<<(unsigned)((items + warps1 - 1) / warps1), warps1 * 32, smem1, s>>>(
+      x, cand, num_rows, w, nchunks, k);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int ncand = nchunks * k;
+  const int warps2 = warps_for(cand_bytes);
+  const size_t smem2 = (size_t)warps2 * cand_bytes;
+  err = cudaFuncSetAttribute(merge_min_k_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
+  if (err != cudaSuccess) return (int)err;
+  merge_min_k_kernel<<<(num_rows + warps2 - 1) / warps2, warps2 * 32, smem2, s>>>(
+      x, cand, vals, pos, num_rows, w, ncand, k);
   return (int)cudaGetLastError();
 }

@@ -271,18 +271,81 @@ def _layer(tree, prefix: str, sd) -> None:
     _norm(ao["LayerNorm_0"], f"{prefix}.output.norm", sd)
 
 
+def _backbone(bb, prefix: str, sd) -> None:
+    _kpconv(bb["ConvBlock_0"]["KPConv_0"], f"{prefix}.encoder1_1.conv", sd)
+    _norm(bb["ConvBlock_0"]["MaskedGroupNorm_0"], f"{prefix}.encoder1_1.norm", sd)
+    for i, name in enumerate(_ENCODER_BLOCKS):
+        _residual(bb[f"CheckpointResidualBlock_{i}"], f"{prefix}.{name}", sd)
+    _unary(bb["UnaryBlock_0"], f"{prefix}.decoder4", sd)
+    _unary(bb["UnaryBlock_1"], f"{prefix}.decoder3", sd)
+    _dense(bb["Dense_0"], f"{prefix}.decoder2", sd)
+
+
+def _embedding(tree, prefix: str, sd) -> None:
+    sd[f"{prefix}.embedding.weight"] = np.asarray(tree["Embed_0"]["embedding"])
+    _norm(tree["LayerNorm_0"], f"{prefix}.norm", sd)
+
+
+def _pe_attention(tree, prefix: str, sd) -> None:
+    for proj in ("proj_q", "proj_p_q", "proj_k", "proj_p_k", "proj_v"):
+        _dense(tree[proj], f"{prefix}.{proj}", sd)
+
+
+def _lrpe_attention(tree, prefix: str, sd) -> None:
+    for proj in ("proj_q", "proj_k", "proj_v"):
+        _dense(tree[proj], f"{prefix}.{proj}", sd)
+    _embedding(tree["LearnablePositionalEmbedding_0"], f"{prefix}.embedding", sd)
+
+
+def _encoder(tree, prefix: str, sd) -> None:
+    for name in tree:  # layer_{i}
+        _layer(tree[name], f"{prefix}.layers.{int(name.split('_')[1])}", sd)
+
+
+def _decoder(tree, prefix: str, sd) -> None:
+    for name in tree:  # self_{i}, cross_{i}
+        kind, index = name.split("_")
+        _layer(tree[name], f"{prefix}.{kind}_layers.{int(index)}", sd)
+
+
+def _conditional(tree, prefix: str, sd) -> None:
+    for name in tree:  # layer_{i}_{self|cross}
+        _layer(tree[name], f"{prefix}.layers.{int(name.split('_')[1])}", sd)
+
+
+# the flax tree -> state_dict converter of each port module that a caller
+# may carry across alone
+_MODULE_CONVERTERS = {
+    "KPConvFPN": _backbone,
+    "LearnablePositionalEmbedding": _embedding,
+    "PEMultiHeadAttention": _pe_attention,
+    "LRPEMultiHeadAttention": _lrpe_attention,
+    "TransformerEncoder": _encoder,
+    "TransformerDecoder": _decoder,
+    "VanillaConditionalTransformer": _conditional,
+    "TransformerLayer": _layer,
+    "RPETransformerLayer": _layer,
+}
+
+
+def module_params_from_flax(module: torch.nn.Module, tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The state_dict of one module of the port (the backbone, the six
+    transformer variants and the two transformer layers) from the parameter
+    tree of the JAX module of the same name (the dict under "params" of its
+    init)."""
+    name = type(module).__name__
+    if name not in _MODULE_CONVERTERS:
+        raise ValueError(f"no flax converter for {name}")
+    sd: Dict[str, np.ndarray] = {}
+    _MODULE_CONVERTERS[name](tree, "", sd)
+    return {k[1:]: torch.tensor(np.asarray(v, np.float32)) for k, v in sd.items()}
+
+
 def params_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """Map the JAX package's GaussRegModel parameter tree (the dict under
     "params") to the port model's state_dict."""
     sd: Dict[str, np.ndarray] = {}
-    bb = tree["backbone"]
-    _kpconv(bb["ConvBlock_0"]["KPConv_0"], "backbone.encoder1_1.conv", sd)
-    _norm(bb["ConvBlock_0"]["MaskedGroupNorm_0"], "backbone.encoder1_1.norm", sd)
-    for i, name in enumerate(_ENCODER_BLOCKS):
-        _residual(bb[f"CheckpointResidualBlock_{i}"], f"backbone.{name}", sd)
-    _unary(bb["UnaryBlock_0"], "backbone.decoder4", sd)
-    _unary(bb["UnaryBlock_1"], "backbone.decoder3", sd)
-    _dense(bb["Dense_0"], "backbone.decoder2", sd)
+    _backbone(tree["backbone"], "backbone", sd)
 
     tr = tree["transformer"]
     emb = tr["embedding"]

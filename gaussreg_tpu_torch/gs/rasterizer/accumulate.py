@@ -22,8 +22,14 @@ ids (`kernels.compacted_gids`) bit for bit.
 
 CUDA tensors launch csrc/segment_accumulate.cu; CPU tensors take
 `accumulate_pairs_plain`. `segment_accumulate_plain` (the function of the
-TPU kernel on (rows, ids)) is the oracle of the tests and of chip_smoke.py;
-no path calls it.
+TPU kernel on (rows, ids)) is the oracle of the tests and of chip_smoke.py.
+
+`segment_accumulate(rows, gid, num_out)` is the TPU kernel's own
+signature: on a CUDA tensor a stable sort of the ids (the JAX function
+sorts outside its kernel too) and the second entry of
+csrc/segment_accumulate.cu, which sums each run of equal sorted ids in
+order; on a CPU tensor `segment_accumulate_plain`. The two are equal bit
+for bit. The render path keeps `accumulate_pairs`.
 """
 
 from __future__ import annotations
@@ -46,6 +52,16 @@ KERNEL = _cuda.register(
         # grad_rows, slot_pos, row_gid, starts, offs, out, num_out, n_rows,
         # mt, num_tiles, cap
         [_PTR] * 6 + [_INT] * 5,
+    ),
+)
+
+GENERIC_KERNEL = _cuda.register(
+    "segment_accumulate_generic",
+    _cuda.CudaKernel(
+        "segment_accumulate.cu",
+        "gaussreg_segment_accumulate",
+        # rows, gid_sorted, perm, out, num_out, n
+        [_PTR] * 4 + [_INT] * 2,
     ),
 )
 
@@ -116,4 +132,26 @@ def accumulate_pairs(grad_rows, slot_pos, row_gid, starts, offs, cap: int, num_o
         offs.data_ptr(), out.data_ptr(), num_out, n_rows, slot_pos.shape[1],
         starts.shape[0] - 1, cap,
     )
+    return out
+
+
+def segment_accumulate(rows: torch.Tensor, gid: torch.Tensor, num_out: int):
+    """out (num_out, 16) f32: out[g] = the sum of rows[i] with gid[i] == g,
+    added in row order; ids outside [0, num_out) are dropped.
+
+    rows: (R, 16) f32; gid: (R,) int32, in any order."""
+    if rows.dim() != 2 or rows.shape[1] != NCHAN or gid.shape != rows.shape[:1]:
+        raise ValueError(f"segment_accumulate: rows {tuple(rows.shape)}, gid "
+                         f"{tuple(gid.shape)}: expected (R, {NCHAN}) and (R,)")
+    if num_out <= 0:
+        raise ValueError(f"segment_accumulate: num_out must be positive, got {num_out}")
+    if rows.device.type == "cpu":
+        return segment_accumulate_plain(rows, gid, num_out)
+    rows = rows.contiguous()
+    _cuda.check_cuda_tensor(rows, "rows", torch.float32, 2)
+    _cuda.check_cuda_tensor(gid, "gid", torch.int32, 1)
+    gid_sorted, perm = torch.sort(gid, stable=True)
+    out = torch.empty((num_out, NCHAN), dtype=torch.float32, device=rows.device)
+    GENERIC_KERNEL.launch(rows.data_ptr(), gid_sorted.data_ptr(), perm.data_ptr(),
+                          out.data_ptr(), num_out, rows.shape[0])
     return out

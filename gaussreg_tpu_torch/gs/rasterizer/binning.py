@@ -59,7 +59,8 @@ class TileBinning(NamedTuple):
     row_gid: torch.Tensor  # (n_rows,) int32 gaussian id per row
 
 
-def _tile_bbox(mx, my, hx, hy, alive, tile_w, tile_h, ntx, nty):
+def _tile_bbox(mx, my, hx, hy, alive, tile_w, tile_h, ntx, nty, ty0=0):
+    # the bbox in the binned rows' tiles, whose first tile row is ty0
     # the divisors are device tensors: CUDA divides by a host scalar as a
     # multiplication by its reciprocal, which moves a centre across a tile
     # edge when the tile size is not a power of two
@@ -67,8 +68,8 @@ def _tile_bbox(mx, my, hx, hy, alive, tile_w, tile_h, ntx, nty):
     tile_h = torch.full((), float(tile_h), device=mx.device)
     x0 = torch.clamp(torch.floor((mx - hx) / tile_w).to(torch.int32), 0, ntx - 1)
     x1 = torch.clamp(torch.floor((mx + hx) / tile_w).to(torch.int32), 0, ntx - 1)
-    y0 = torch.clamp(torch.floor((my - hy) / tile_h).to(torch.int32), 0, nty - 1)
-    y1 = torch.clamp(torch.floor((my + hy) / tile_h).to(torch.int32), 0, nty - 1)
+    y0 = torch.clamp(torch.floor((my - hy) / tile_h).to(torch.int32) - ty0, 0, nty - 1)
+    y1 = torch.clamp(torch.floor((my + hy) / tile_h).to(torch.int32) - ty0, 0, nty - 1)
     zero = torch.zeros_like(x0)
     bw = torch.where(alive, x1 - x0 + 1, zero)
     bh = torch.where(alive, y1 - y0 + 1, zero)
@@ -94,11 +95,16 @@ def _saturation_lookup(sat_depth, sat_margin, ntx, nty, x0, y0, bw, bh):
     return look, size <= MAX_POOL_LEVELS
 
 
-def slot_positions(order: torch.Tensor, n_rows: int, mt: int) -> torch.Tensor:
+def slot_positions(order: torch.Tensor, n_rows: int, mt: int,
+                   first: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(n_rows, mt) int32 sorted position of every flat slot r * mt + s:
     the inverse of the sort's permutation `order`, a scatter with unique
-    indices (deterministic). Invalid slots sort past num_pairs."""
+    indices (deterministic), each position after the list's `first` (1,)
+    leading empty entries (starts[:1]: 0 but after `align_blocks`). Invalid
+    slots sort past num_pairs."""
     pos = torch.arange(n_rows * mt, dtype=torch.int32, device=order.device)
+    if first is not None:
+        pos = pos + first
     return torch.empty_like(pos).scatter_(0, order, pos).reshape(n_rows, mt)
 
 
@@ -123,15 +129,27 @@ def bin_gaussians(
     # the live set is COMPACTED before pair expansion, shrinking the sort
     # from G*mt to live_cap*mt keys. Requires sat_depth.
     sat_margin: float = 1.05,  # multiplicative slack on sat_depth
+    row0: int = 0,  # bin only rows [row0, row0 + height) of an image of
+    full_height: Optional[int] = None,  # full_height rows (default row0 +
+    # height), in whose pixel frame means2d lies: render_sharded's slices.
+    # The tile grid then covers rows [0, row0 + height), the tiles above
+    # row0 empty, so that tile ids, culls, sort keys and the kernels' pixel
+    # coordinates are the whole image's; row0 is a multiple of tile_h.
 ) -> TileBinning:
     g = means2d.shape[0]
     dev = means2d.device
     ntx = (width + tile_w - 1) // tile_w
-    nty = (height + tile_h - 1) // tile_h
-    num_tiles = ntx * nty
+    nty = (height + tile_h - 1) // tile_h  # the binned rows' tile rows
     mt = max_tiles_per_gaussian
+    if row0 % tile_h:
+        raise ValueError(f"bin_gaussians: row0 {row0} is not a multiple of tile_h {tile_h}")
+    ty0 = row0 // tile_h
+    num_tiles = ntx * (ty0 + nty)
+    full_tiles = ntx * ((max(full_height or 0, row0 + height) + tile_h - 1) // tile_h)
 
-    tile_bits = max(num_tiles + 1, 2).bit_length()
+    # the whole image's key layout, so that a slice orders its pairs as the
+    # whole image does
+    tile_bits = max(full_tiles + 1, 2).bit_length()
     depth_bits = 32 - tile_bits
     if tile_bits > 12:
         raise ValueError("image too large for 32-bit sort keys")
@@ -147,9 +165,9 @@ def bin_gaussians(
     alive = (
         (r > 0)
         & (mx + hx >= 0) & (mx - hx < width)
-        & (my + hy >= 0) & (my - hy < height)
+        & (my + hy >= row0) & (my - hy < row0 + height)
     )
-    x0, y0, bw, bh = _tile_bbox(mx, my, hx, hy, alive, tile_w, tile_h, ntx, nty)
+    x0, y0, bw, bh = _tile_bbox(mx, my, hx, hy, alive, tile_w, tile_h, ntx, nty, ty0)
     count = bw * bh
     # the mt-cap overflow counter always reflects the full gaussian set
     overflow = torch.sum(torch.clamp_min(count - mt, 0)).to(torch.int32)
@@ -177,7 +195,7 @@ def bin_gaussians(
         if minor is not None:
             minor = minor[perm]
         gids = perm.to(torch.int32)
-        x0, y0, bw, bh = _tile_bbox(mx, my, hx, hy, alive, tile_w, tile_h, ntx, nty)
+        x0, y0, bw, bh = _tile_bbox(mx, my, hx, hy, alive, tile_w, tile_h, ntx, nty, ty0)
         count = bw * bh
     else:
         live_overflow = torch.zeros((), dtype=torch.int32, device=dev)
@@ -199,13 +217,13 @@ def bin_gaussians(
     in_bbox = slot[None, :] < torch.clamp_max(count, mt)[:, None]
     tx = x0[:, None] + dx
     ty = y0[:, None] + dy
-    tid = ty * ntx + tx  # (n_rows, mt)
+    tid = (ty + ty0) * ntx + tx  # (n_rows, mt)
 
     # circle-rect cull: distance from the gaussian center to the tile rect
     # exceeding the (opacity-aware) radius means alpha < 1/255 everywhere in
     # the tile
     tlx = (tx * tile_w).to(torch.float32)
-    tly = (ty * tile_h).to(torch.float32)
+    tly = ((ty + ty0) * tile_h).to(torch.float32)
     mxc, myc = mx[:, None], my[:, None]
     cdx = torch.clamp_min(torch.maximum(tlx - mxc, mxc - (tlx + tile_w)), 0.0)
     cdy = torch.clamp_min(torch.maximum(tly - myc, myc - (tly + tile_h)), 0.0)
@@ -263,3 +281,20 @@ def bin_gaussians(
         order=order,
         row_gid=gids,
     )
+
+
+def align_blocks(binning: TileBinning, pairs_before: int, num_gaussians: int,
+                 chunk: int = 128) -> TileBinning:
+    """The same pairs behind `pairs_before % chunk` empty entries (the
+    sentinel id), so that every tile's pairs fall on the chunk-sized blocks
+    where they fall in a longer list holding `pairs_before` pairs first:
+    render_sharded gives each slice the block boundaries of the whole
+    image's list, so its tiles walk the same chunks as render()'s."""
+    lead = pairs_before % chunk
+    if lead == 0:
+        return binning
+    n = binning.sorted_gid.shape[0]
+    sorted_gid = F.pad(binning.sorted_gid, (lead, (-(n + lead)) % chunk), value=num_gaussians)
+    # tile 0's segment now starts at `lead`: starts[0] is the lead the
+    # backward's pair table adds
+    return binning._replace(sorted_gid=sorted_gid.contiguous(), starts=binning.starts + lead)

@@ -466,7 +466,8 @@ class _RasterizeGaussians(torch.autograd.Function):
         # it. The sentinel row G is in no row of the table: its cotangent
         # stays zero (alpha == 0 there)
         n_rows = row_gid.shape[0]
-        slot_pos = slot_positions(order, n_rows, order.shape[0] // max(n_rows, 1))
+        slot_pos = slot_positions(order, n_rows, order.shape[0] // max(n_rows, 1),
+                                  starts[:1])
         d_gdata = accumulate_pairs(
             grad_rows, slot_pos, row_gid, starts, offs, sorted_gid.shape[0], gdata.shape[0]
         )

@@ -14,6 +14,30 @@ ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
 
 
+def composite_pixels(px: torch.Tensor, order: torch.Tensor, proj: ProjectedGaussians):
+    """Alpha-composite every gaussian, in `order` (front to back), over the
+    pixel centers px (..., 2), one gaussian at a time. Returns (rgbd
+    (..., 4): rgb and depth composited alike, T (...))."""
+    means = proj.means2d[order]
+    conics = proj.conics[order]
+    colors = torch.cat([proj.colors, proj.depths[:, None]], dim=1)[order]
+    opac = torch.where(proj.valid[order], proj.opacities[order],
+                       torch.zeros_like(proj.opacities[order]))
+    rgbd = torch.zeros(px.shape[:-1] + (4,), dtype=torch.float32, device=px.device)
+    t = torch.ones(px.shape[:-1], dtype=torch.float32, device=px.device)
+    for i in range(means.shape[0]):
+        d = px - means[i]
+        conic = conics[i]
+        power = -0.5 * (conic[0] * d[..., 0] ** 2 + conic[2] * d[..., 1] ** 2) \
+            - conic[1] * d[..., 0] * d[..., 1]
+        alpha = opac[i] * torch.exp(torch.clamp_max(power, 0.0))
+        alpha = torch.where(alpha < ALPHA_MIN, torch.zeros_like(alpha),
+                            torch.clamp_max(alpha, ALPHA_MAX))
+        rgbd = rgbd + (t * alpha)[..., None] * colors[i]
+        t = t * (1.0 - alpha)
+    return rgbd, t
+
+
 def render_reference(
     proj: ProjectedGaussians, width: int, height: int, gaussian_block: int = 256
 ):

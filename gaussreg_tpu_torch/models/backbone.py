@@ -16,7 +16,7 @@ from gaussreg_tpu_torch.models.kpconv import (
     ConvBlock,
     ResidualBlock,
     UnaryBlock,
-    generate_kernel_points,
+    kernel_points,
     kpconv_geometry,
     nearest_upsample,
 )
@@ -26,10 +26,6 @@ class KPConvFPN(nn.Module):
     def __init__(self, input_dim, output_dim, init_dim, kernel_size, init_radius,
                  init_sigma, group_norm, shared_geometry=True):
         super().__init__()
-        if kernel_size > 30:
-            raise NotImplementedError(
-                "kernel_size > 30 needs the spherical-Lloyd kernel points, not ported"
-            )
         d, k, r, s, g = init_dim, kernel_size, init_radius, init_sigma, group_norm
         self.kernel_size = k
         self.init_radius = r
@@ -68,7 +64,7 @@ class KPConvFPN(nn.Module):
         if self.shared_geometry:
             # one (influence, count) per neighbor list, shared by every conv
             # on it (all convs share the deterministic kernel disposition)
-            kp0 = torch.from_numpy(generate_kernel_points(self.kernel_size)).to(feats.device)
+            kp0 = torch.from_numpy(kernel_points(self.kernel_size)).to(feats.device)
             r, s = self.init_radius, self.init_sigma
             geo_n = [
                 kpconv_geometry(pts[l], pts[l], nbr[l], kp0 * (r * 2**l), s * 2**l)

@@ -39,6 +39,15 @@ def lecun_normal_(param: torch.Tensor, fan_in: int, generator: torch.Generator) 
     fill_(param, values)
 
 
+def normal_(param: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    """An untruncated normal of standard deviation `std` (flax's nn.Embed
+    init, variance_scaling(1, fan_in, normal) with fan_in = the feature
+    width: std = 1 / sqrt(features))."""
+    values = torch.empty(param.shape, dtype=torch.float32)
+    nn.init.normal_(values, 0.0, std, generator=generator)
+    fill_(param, values)
+
+
 def variance_scaling_uniform_(param: torch.Tensor, scale: float, fan_in: int,
                               generator: torch.Generator) -> None:
     limit = math.sqrt(3.0 * scale / fan_in)

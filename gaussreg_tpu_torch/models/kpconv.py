@@ -3,9 +3,15 @@
 
 All ops take a leading cloud axis (B, N, ...). Kernel influences come from
 a |n|^2 - 2 n.kp + |kp|^2 gram expansion; GroupNorm statistics span all
-valid points of the whole batch. Every KPConv aggregation goes through
-`kpconv_fused_apply` (the CUDA kernel K2 on CUDA tensors), whatever its
-channel widths; the bf16 casts sit where the JAX package puts them.
+valid points of the whole batch. A KPConv of up to MAX_KERNEL_POINTS (16)
+kernel points aggregates through `kpconv_fused_apply` (the CUDA kernel K2
+on CUDA tensors), whatever its channel widths; a larger kernel through the
+bf16 einsum pair that the JAX package computes outside its Pallas kernel
+(`kpconv_einsum_apply`), as the JAX package routes by K
+(gaussreg_tpu/models/kpconv.py:185-191). The route is chosen from the
+shape. The bf16 casts sit where the JAX package puts them. Kernels of more
+than 30 points take the spherical-Lloyd dispositions, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -19,7 +25,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from gaussreg_tpu_torch.models import initializers as init
-from gaussreg_tpu_torch.ops.kpconv_kernel import kpconv_fused_apply
+from gaussreg_tpu_torch.ops.kpconv_kernel import (
+    MAX_KERNEL_POINTS,
+    kpconv_fused_apply,
+    reference_apply,
+)
 
 _SENTINEL_COORD = 1e6
 
@@ -46,6 +56,54 @@ def generate_kernel_points(num_points: int = 15, seed: int = 42) -> np.ndarray:
         pts[1:] = np.where(norms > 1.0, pts[1:] / norms, pts[1:])
         lr *= 0.999
     return pts.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def generate_kernel_points_lloyd(
+    num_points: int, seed: int = 42, num_samples: int = 20000, iters: int = 60
+) -> np.ndarray:
+    """Spherical-Lloyd kernel points: k-means of uniform samples of the unit
+    ball, first point at the center (the JAX package's construction for
+    kernels of more than 30 points, bit for bit in numpy)."""
+    rng = np.random.default_rng(seed)
+    samples = rng.normal(size=(num_samples, 3))
+    samples /= np.linalg.norm(samples, axis=1, keepdims=True)
+    samples *= rng.uniform(size=(num_samples, 1)) ** (1.0 / 3.0)
+    centers = samples[rng.choice(num_samples, num_points, replace=False)].copy()
+    centers[0] = 0.0
+    for _ in range(iters):
+        d2 = ((samples[:, None, :] - centers[None]) ** 2).sum(-1)
+        assign = np.argmin(d2, axis=1)
+        for j in range(1, num_points):
+            sel = samples[assign == j]
+            if sel.shape[0]:
+                centers[j] = sel.mean(0)
+        centers[0] = 0.0
+    return centers.astype(np.float32)
+
+
+def kernel_points(num_points: int) -> np.ndarray:
+    """The disposition of a `num_points` kernel in the unit ball: repulsion
+    up to 30 points, spherical Lloyd above."""
+    if num_points > 30:
+        return generate_kernel_points_lloyd(num_points)
+    return generate_kernel_points(num_points)
+
+
+class EinsumRoute:
+    """Calls of the einsum route (KPConvs of more than MAX_KERNEL_POINTS
+    kernel points), counted beside K2's launch count."""
+
+    calls = 0
+
+
+def kpconv_einsum_apply(nf, influence, weights):
+    """The bf16 einsum pair of the JAX package's non-kernel route: bf16
+    influences and features, f32 sums rounded to bf16, contracted with the
+    bf16-rounded weights in f32 (`reference_apply`'s arithmetic), through
+    autograd. Counted in `EinsumRoute.calls`."""
+    EinsumRoute.calls += 1
+    return reference_apply(nf, influence, weights)
 
 
 def batched_gather(values: torch.Tensor, indices: torch.Tensor, fill=0.0):
@@ -103,7 +161,7 @@ class KPConv(nn.Module):
         super().__init__()
         self.sigma = sigma
         self.radius = radius
-        kp = generate_kernel_points(kernel_size) * radius
+        kp = kernel_points(kernel_size) * radius
         self.kernel_points = nn.Parameter(torch.from_numpy(kp), requires_grad=False)
         self.weights = nn.Parameter(torch.zeros(kernel_size, in_channels, out_channels))
         self.bias = nn.Parameter(torch.zeros(out_channels))
@@ -115,7 +173,7 @@ class KPConv(nn.Module):
         k, c_in, _ = self.weights.shape
         init.variance_scaling_uniform_(self.weights, 1.0 / 3.0, k * c_in, generator)
         init.constant_(self.bias, 0.0)
-        init.fill_(self.kernel_points, torch.from_numpy(generate_kernel_points(k) * self.radius))
+        init.fill_(self.kernel_points, torch.from_numpy(kernel_points(k) * self.radius))
 
     def forward(self, s_feats, q_points, s_points, neighbor_indices,
                 geometry: Optional[Geometry] = None):
@@ -124,10 +182,13 @@ class KPConv(nn.Module):
                 q_points, s_points, neighbor_indices, self.kernel_points, self.sigma
             )
         influence, count = geometry
-        # bf16 features and influences, f32 accumulation inside the fused
-        # aggregation
+        # bf16 features and influences, f32 accumulation; K2 up to
+        # MAX_KERNEL_POINTS kernel points, the einsum pair above
         nf = gather_bf16(s_feats, neighbor_indices)
-        out = kpconv_fused_apply(nf, influence, self.weights)
+        if influence.shape[-1] <= MAX_KERNEL_POINTS:
+            out = kpconv_fused_apply(nf, influence, self.weights)
+        else:
+            out = kpconv_einsum_apply(nf, influence, self.weights)
         out = out / torch.clamp_min(count, 1)[..., None].to(out.dtype)
         return out + self.bias
 
@@ -201,6 +262,25 @@ def maxpool(s_feats, neighbor_indices):
 def nearest_upsample(s_feats, upsample_indices):
     """Features of the first (nearest) neighbor."""
     return batched_gather(s_feats, upsample_indices[:, :, :1], fill=0.0)[:, :, 0]
+
+
+def knn_interpolate(s_feats, q_points, s_points, neighbor_indices, k: int, eps=1e-8):
+    """Inverse-squared-distance weighted interpolation over the first k
+    neighbors; sentinel neighbors weigh 0."""
+    idx = neighbor_indices[:, :, :k]
+    knn_points = batched_gather(s_points, idx, fill=0.0)  # (B, N, k, 3)
+    knn_feats = batched_gather(s_feats, idx, fill=0.0)  # (B, N, k, C)
+    sq = torch.sum((q_points[:, :, None, :] - knn_points) ** 2, dim=-1)
+    masks = (idx != s_points.shape[1]).to(s_feats.dtype)
+    weights = masks / (sq + eps)
+    weights = weights / (torch.sum(weights, dim=-1, keepdim=True) + eps)
+    return torch.sum(knn_feats * weights[..., None], dim=2)
+
+
+def global_avgpool(feats, mask):
+    """Masked mean over each cloud: (B, N, C), (B, N) -> (B, C)."""
+    m = mask[..., None].to(feats.dtype)
+    return torch.sum(feats * m, dim=1) / torch.clamp_min(torch.sum(m, dim=1), 1.0)
 
 
 class ResidualBlock(nn.Module):

@@ -1,5 +1,12 @@
-"""Fixed-capacity grid-run radius search (port of gaussreg_tpu/ops/neighbors.py:
-grid_radius_search).
+"""Fixed-capacity neighbor search (port of gaussreg_tpu/ops/neighbors.py).
+
+Brute force (`radius_search`, `knn_search`): blockwise gram-form
+distances |q|^2 - 2 q.s + |s|^2 and the k smallest per query row through
+`select_min_k` (the CUDA kernel K3 on CUDA tensors, its wide mode past
+25 600 support points; the plain stable sort on CPU tensors), whose tie
+order (ties to the smaller index) is lax.top_k's.
+
+Grid-run pruned (`grid_radius_search`):
 
 Supports are sorted by a linear cell key (cell == radius, z in the low bits)
 so each query's 27-cell neighborhood is nine contiguous z-runs. Per query:
@@ -10,9 +17,11 @@ Exact nearest-`limit` within the radius when no run overflows its window;
 `overflow` counts run entries beyond the gathered windows.
 
 Selection branches: "auto" and "fused" run `window_select_idx` (the CUDA
-kernel K1 on CUDA tensors, its plain version on CPU tensors); "topk" is the
-JAX package's two-stage top-k branch, kept as a plain path. The JAX
-package's legacy "pallas" branch is not ported.
+kernel K1 on CUDA tensors, its plain version on CPU tensors); "pallas",
+the JAX package's legacy branch, runs `select_min_k` (K3) over each
+query's (nruns * wspan) window distances and decodes the flat positions to
+run and offset; "topk" is the JAX package's two-stage top-k branch, kept
+as a plain path. All three give the same indices.
 """
 
 from __future__ import annotations
@@ -22,11 +31,61 @@ from typing import NamedTuple
 import torch
 
 from gaussreg_tpu_torch.ops.fused_select import window_select_idx
+from gaussreg_tpu_torch.ops.select_k import select_min_k
 
 _BIG = 1e12
 _BITS = 10  # cell coords in [0, 1024); linear key x<<20 | y<<10 | z
 _CW = 128  # window row width
 _EMPTY_KEY = 0x3FFFFFFF  # invalid supports sort last
+
+
+def _blocked_topk_dist(q_points, s_points, s_mask, k: int, block: int):
+    """(sq_dists, indices) of the k nearest valid support points of every
+    query row, `block` queries at a time. q (M, 3), s (N, 3) -> (M, k)."""
+    s2 = torch.sum(s_points * s_points, dim=-1)
+    s2 = torch.where(s_mask, s2, _f32(_BIG, s2))
+    d2_parts, idx_parts = [], []
+    for lo in range(0, q_points.shape[0], block):
+        qb = q_points[lo:lo + block]
+        d2 = torch.sum(qb * qb, dim=-1)[:, None] - 2.0 * qb @ s_points.T + s2[None, :]
+        vals, idx = select_min_k(d2.contiguous(), k)
+        d2_parts.append(vals)
+        idx_parts.append(idx)
+    if not d2_parts:
+        empty = q_points.new_zeros((0, k))
+        return empty, empty.to(torch.int32)
+    return torch.clamp_min(torch.cat(d2_parts), 0.0), torch.cat(idx_parts)
+
+
+def radius_search(q_points, s_points, q_mask, s_mask, radius, limit: int, block: int = 1024):
+    """Nearest `limit` support points within `radius` of each query (brute
+    force). q (M, 3), s (N, 3) -> (M, limit) int32 indices, sentinel N for
+    missing neighbors and invalid queries."""
+    n = s_points.shape[0]
+    d2, idx = _blocked_topk_dist(q_points, s_points, s_mask, limit, block)
+    rad = _f32(radius, s_points)
+    ok = (d2 <= rad * rad) & q_mask[:, None]
+    return torch.where(ok, idx, n).to(torch.int32)
+
+
+def knn_search(q_points, s_points, q_mask, s_mask, k: int, block: int = 1024):
+    """k nearest valid support points per query. Returns (indices (M, k)
+    int32 with sentinel N, sq_dists (M, k)); invalid queries get
+    all-sentinel rows."""
+    n = s_points.shape[0]
+    d2, idx = _blocked_topk_dist(q_points, s_points, s_mask, k, block)
+    ok = (d2 < _BIG / 2) & q_mask[:, None]
+    return torch.where(ok, idx, n).to(torch.int32), d2
+
+
+def gather_padded(values: torch.Tensor, indices: torch.Tensor, fill=0.0) -> torch.Tensor:
+    """Rows of `values` (N, ...) at `indices` (...); the sentinel index N
+    returns `fill`."""
+    n = values.shape[0]
+    out = values[torch.clamp_max(indices, n - 1).long()]
+    sentinel = (indices == n).reshape(indices.shape + (1,) * (values.dim() - 1))
+    return torch.where(sentinel, torch.as_tensor(fill, dtype=values.dtype,
+                                                 device=values.device), out)
 
 
 class FusedWindows(NamedTuple):
@@ -202,14 +261,14 @@ def grid_radius_search(
     radius,
     limit: int,
     window_rows: int = 2,
-    select_kernel: str = "auto",  # auto | fused | topk
+    select_kernel: str = "auto",  # auto | fused | pallas | topk
     cell_factor: float = 1.0,  # 1.0 (9 runs) or >= 2.0 (4 runs)
 ):
     """Batched grid-run pruned radius search.
 
     Returns (indices (B, M, limit) int32 with sentinel == N, overflow ()
     int32 — candidate z-run entries beyond the gathered aligned windows)."""
-    if select_kernel not in ("auto", "fused", "topk"):
+    if select_kernel not in ("auto", "fused", "pallas", "topk"):
         raise ValueError(f"grid_radius_search: unknown select_kernel {select_kernel!r}")
     b, m = q_points.shape[:2]
     n = s_points.shape[1]
@@ -243,15 +302,26 @@ def grid_radius_search(
         diff = ca - q_points[:, :, None, None, a]
         d2 = d2 + diff * diff
     d2 = torch.where(cand_valid, d2, _BIG)
-    # two-stage exact top-k (stable sorts keep lax.top_k's tie order): the
-    # nearest `limit` per run, then the nearest `limit` of the run winners
-    kk = min(limit, wspan)
-    v1, slot1 = torch.sort(d2, dim=-1, stable=True)
-    v1, slot1 = v1[..., :kk], slot1[..., :kk]
-    d2_sel, slot2 = torch.sort(v1.reshape(b, m, nruns * kk), dim=-1, stable=True)
-    d2_sel, slot2 = d2_sel[..., :limit], slot2[..., :limit]
-    run = torch.div(slot2, kk, rounding_mode="floor")
-    within_run = torch.gather(slot1.reshape(b, m, nruns * kk), -1, slot2)
+    if select_kernel == "pallas":
+        # K3 over each query's flat (run-major, offset-minor) window
+        # distances: its tie order (the smaller flat position) is the
+        # two-stage top-k's
+        vals, flat = select_min_k(d2.reshape(b * m, nruns * wspan), limit)
+        d2_sel = vals.reshape(b, m, limit)
+        flat = flat.reshape(b, m, limit).long()
+        run = torch.div(flat, wspan, rounding_mode="floor")
+        within_run = flat - run * wspan
+    else:
+        # two-stage exact top-k (stable sorts keep lax.top_k's tie order):
+        # the nearest `limit` per run, then the nearest `limit` of the run
+        # winners
+        kk = min(limit, wspan)
+        v1, slot1 = torch.sort(d2, dim=-1, stable=True)
+        v1, slot1 = v1[..., :kk], slot1[..., :kk]
+        d2_sel, slot2 = torch.sort(v1.reshape(b, m, nruns * kk), dim=-1, stable=True)
+        d2_sel, slot2 = d2_sel[..., :limit], slot2[..., :limit]
+        run = torch.div(slot2, kk, rounding_mode="floor")
+        within_run = torch.gather(slot1.reshape(b, m, nruns * kk), -1, slot2)
     picked = torch.gather(wrow, -1, run).long() * _CW + within_run
     idx = torch.gather(
         runs.order, 1, torch.clamp_max(picked, n - 1).reshape(b, -1)

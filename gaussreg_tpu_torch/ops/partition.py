@@ -1,8 +1,11 @@
 """Point-to-node (superpoint patch) partition
-(port of gaussreg_tpu/ops/partition.py: point_to_node_partition).
+(port of gaussreg_tpu/ops/partition.py).
 
 Every point is assigned to its nearest valid node; each node's patch is its
 `point_limit` nearest assigned points, sentinel-padded with index N.
+`knn_partition` and `ball_query_partition` select each node's k nearest
+points through `select_min_k` (K3 on CUDA tensors), whose tie order is
+lax.top_k's.
 """
 
 from __future__ import annotations
@@ -10,6 +13,9 @@ from __future__ import annotations
 import torch
 
 from gaussreg_tpu_torch.ops.pairwise import masked_pairwise_sq_dist
+from gaussreg_tpu_torch.ops.select_k import select_min_k
+
+_BIG = 1e12
 
 
 def point_to_node_partition(
@@ -51,3 +57,34 @@ def point_to_node_partition(
         node_knn_masks,
         node_sizes,
     )
+
+
+def get_point_to_node_indices(points, nodes, point_mask, node_mask):
+    """Nearest valid node of every point (N,) int32, and each node's count
+    of valid assigned points (M,) int32."""
+    sq = masked_pairwise_sq_dist(nodes, points, node_mask, point_mask)
+    indices = torch.argmin(sq, dim=0)
+    counts = torch.zeros(nodes.shape[0], dtype=torch.int32, device=points.device)
+    counts.index_add_(0, indices, point_mask.to(torch.int32))
+    return indices.to(torch.int32), counts
+
+
+def knn_partition(points, nodes, point_mask, node_mask, k: int):
+    """k nearest valid points per node. Returns (sq_distances (M, k), _BIG
+    where missing; indices (M, k) int32, sentinel N)."""
+    n = points.shape[0]
+    sq = masked_pairwise_sq_dist(nodes, points, node_mask, point_mask)
+    vals, idx = select_min_k(sq.contiguous(), k)
+    ok = vals < _BIG / 2
+    return (torch.where(ok, vals, torch.full_like(vals, _BIG)),
+            torch.where(ok, idx, n).to(torch.int32))
+
+
+def ball_query_partition(points, nodes, point_mask, node_mask, radius, point_limit: int):
+    """The `point_limit` nearest points per node within `radius`. Returns
+    (indices (M, K) int32 sentinel N, masks (M, K), sizes (M,) int32)."""
+    n = points.shape[0]
+    sq, idx = knn_partition(points, nodes, point_mask, node_mask, point_limit)
+    masks = sq < radius * radius
+    idx = torch.where(masks, idx, n).to(torch.int32)
+    return idx, masks, torch.sum(masks, dim=1).to(torch.int32)

@@ -6,7 +6,11 @@ from it in one fused launch.
 and runs `select_min_k_plain` for CPU tensors. Semantics of the Pallas
 kernel: values ascending, ties to the smaller flat position (the order of
 lax.top_k(-x, k)). Precondition: inputs are finite. Unlike the Pallas
-kernel, any width W works (no multiple-of-128 requirement).
+kernel, any width W works (no multiple-of-128 requirement). Rows wider
+than `WIDE_MIN_WIDTH` - 1 columns, whose keys do not fit in shared memory,
+take the kernel's wide mode (the k smallest of each 2048-column chunk, then
+of the chunk winners): the same result, chosen by width before the launch,
+counted as `select_min_k_wide`.
 
 `kth_largest_rows_cols` gives, for (P, W, W) scores, the k-th largest value
 of every row and of every column of each patch: bit for bit what two
@@ -43,6 +47,22 @@ FUSED_KERNEL = _cuda.register(
          ctypes.c_int],
     ),
 )
+WIDE_KERNEL = _cuda.register(
+    "select_min_k_wide",
+    _cuda.CudaKernel(
+        "select_k.cu",
+        "gaussreg_select_min_k_wide",
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int],
+    ),
+)
+# csrc/select_k.cu: a row's 8-byte keys in at most 200 KiB of shared memory
+# (kMaxSmem); wider rows take the wide mode in chunks of WIDE_CHUNK columns,
+# whose nchunks * k winners must fit there too
+_MAX_SMEM = 200 * 1024
+WIDE_MIN_WIDTH = _MAX_SMEM // 8 + 1
+WIDE_CHUNK = 2048
+
 # csrc/select_k.cu: the W x W tile in shared memory and 2W threads; the k
 # best of a line in registers
 FUSED_MAX_WIDTH = 192
@@ -67,7 +87,17 @@ def select_min_k(x: torch.Tensor, k: int):
     _cuda.check_cuda_tensor(x, "x", torch.float32, 2)
     vals = torch.empty((r, k), dtype=torch.float32, device=x.device)
     pos = torch.empty((r, k), dtype=torch.int32, device=x.device)
-    KERNEL.launch(x.data_ptr(), vals.data_ptr(), pos.data_ptr(), r, w, k)
+    if r == 0:
+        return vals, pos
+    if w < WIDE_MIN_WIDTH:
+        KERNEL.launch(x.data_ptr(), vals.data_ptr(), pos.data_ptr(), r, w, k)
+        return vals, pos
+    nchunks = -(-w // WIDE_CHUNK)
+    if nchunks * k * 8 > _MAX_SMEM:
+        raise ValueError(f"select_min_k: the wide mode needs ceil(W / {WIDE_CHUNK}) * k * 8 <= "
+                         f"200 KiB, got W={w}, k={k}")
+    cand = torch.empty((r, nchunks * k), dtype=torch.int64, device=x.device)
+    WIDE_KERNEL.launch(x.data_ptr(), vals.data_ptr(), pos.data_ptr(), cand.data_ptr(), r, w, k)
     return vals, pos
 
 

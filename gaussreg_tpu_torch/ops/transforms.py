@@ -21,6 +21,14 @@ def apply_transform(points: torch.Tensor, transform: torch.Tensor) -> torch.Tens
     return torch.einsum("...ij,...nj->...ni", rotation, points) + translation[..., None, :]
 
 
+def apply_rotation(points: torch.Tensor, rotation: torch.Tensor) -> torch.Tensor:
+    """Rotate (..., N, 3) points by a (3, 3) or batched (..., 3, 3)
+    rotation (points @ R^T)."""
+    if rotation.dim() == 2:
+        return points @ rotation.T
+    return torch.einsum("...ij,...nj->...ni", rotation, points)
+
+
 def transform_from_rotation_translation(
     rotation: torch.Tensor, translation: torch.Tensor
 ) -> torch.Tensor:
@@ -43,6 +51,15 @@ def rotation_translation_scale_from_transform(transform: torch.Tensor):
     return rotation, translation, scale
 
 
+def inverse_rigid_transform(transform: torch.Tensor) -> torch.Tensor:
+    """Inverse of a rigid (no scale) (..., 4, 4) transform."""
+    rotation = transform[..., :3, :3]
+    translation = transform[..., :3, 3]
+    inv_rotation = rotation.transpose(-1, -2)
+    inv_translation = -torch.einsum("...ij,...j->...i", inv_rotation, translation)
+    return transform_from_rotation_translation(inv_rotation, inv_translation)
+
+
 def skew_symmetric(v: torch.Tensor) -> torch.Tensor:
     """(..., 3) -> (..., 3, 3) skew-symmetric matrix."""
     x, y, z = v[..., 0], v[..., 1], v[..., 2]
@@ -53,6 +70,27 @@ def skew_symmetric(v: torch.Tensor) -> torch.Tensor:
         torch.stack([-y, x, zero], dim=-1),
     ]
     return torch.stack(rows, dim=-2)
+
+
+def rodrigues_rotation(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """Axis-angle -> rotation matrix by the Rodrigues formula. axis (..., 3)
+    (need not be unit), angle (...) in radians."""
+    axis = axis / (torch.linalg.norm(axis, dim=-1, keepdim=True) + 1e-12)
+    k = skew_symmetric(axis)
+    eye = torch.eye(3, dtype=axis.dtype, device=axis.device).expand(k.shape)
+    s = torch.sin(angle)[..., None, None]
+    c = torch.cos(angle)[..., None, None]
+    return eye + s * k + (1.0 - c) * (k @ k)
+
+
+def random_rotation(generator: torch.Generator, rotation_factor: float = 1.0) -> torch.Tensor:
+    """A random (3, 3) rotation on the generator's device: a normal axis
+    (uniform direction) and an angle uniform in [0, 2 pi factor) (the JAX
+    package draws from a key: other numbers, the same distribution)."""
+    dev = generator.device
+    axis = torch.randn(3, generator=generator, device=dev)
+    angle = torch.rand((), generator=generator, device=dev) * 2.0 * torch.pi * rotation_factor
+    return rodrigues_rotation(axis, angle)
 
 
 def exp_so3(omega: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,11 @@ explicitly. So the mesh helpers have no torch meaning; in their place:
   applies the same reduced gradient;
 - `batch_sharded` / `shard_batch_pytree` -> each rank builds its
   `process_local_batch_slice` of the global batch on its own device;
-- XLA's gradient all-reduce -> `all_reduce_mean_` over one flat buffer.
+- XLA's gradient all-reduce -> `all_reduce_mean_` over one flat buffer;
+- a `mesh` and `axis_name` argument (the JAX `render_sharded`) -> a
+  process group argument (`group`, default the default group);
+  shard_map's transpose of replicated inputs -> an explicit all-reduce of
+  their gradients (gs/rasterizer/render.py `_Replicated`).
 
 Why an explicit reduction and not DistributedDataParallel: the train step
 already collects a name -> gradient dict for its optimizer (optax's chain,

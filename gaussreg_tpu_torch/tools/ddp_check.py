@@ -143,23 +143,25 @@ def run_rank(args) -> None:
         torch.distributed.destroy_process_group()
 
 
-def launch(args, argv) -> int:
-    """Start `args.world` ranks of this tool and wait for them all."""
+def launch_ranks(module: str, world: int, output_dir: str, argv, timeout: float) -> int:
+    """Start `world` processes of `python -m <module> argv --rank r`, each
+    logging to <output_dir>/rank<r>.log, and wait for them all: until every
+    one has exited, one has failed or `timeout` seconds are up; then stop
+    those still running. Returns 0 when all exited with 0, else 1 after
+    printing the logs' ends."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(p for p in (ROOT, env.get("PYTHONPATH")) if p)
     env.setdefault("GLOO_SOCKET_IFNAME", "lo")  # every rank runs on this host
     procs, logs = [], []
-    for rank in range(args.world):
-        log = open(os.path.join(args.output_dir, f"rank{rank}.log"), "w")
+    for rank in range(world):
+        log = open(os.path.join(output_dir, f"rank{rank}.log"), "w")
         logs.append(log)
         procs.append(subprocess.Popen(
-            [sys.executable, "-m", "gaussreg_tpu_torch.tools.ddp_check", *argv,
-             "--rank", str(rank)],
+            [sys.executable, "-m", module, *argv, "--rank", str(rank)],
             cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
         ))
-    deadline = time.monotonic() + RANK_TIMEOUT
+    deadline = time.monotonic() + timeout
     try:
-        # wait until every rank has exited, one has failed, or time is up
         while True:
             rcs = [p.poll() for p in procs]
             if None not in rcs or any(rcs) or time.monotonic() > deadline:
@@ -175,7 +177,7 @@ def launch(args, argv) -> int:
     if not any(rc is None or rc for rc in rcs):
         return 0
     for rank, rc in enumerate(rcs):
-        with open(os.path.join(args.output_dir, f"rank{rank}.log")) as f:
+        with open(os.path.join(output_dir, f"rank{rank}.log")) as f:
             print(f"rank {rank} ({'stopped' if rc is None else f'exit {rc}'}):\n"
                   f"{f.read()[-4000:]}", file=sys.stderr)
     return 1
@@ -186,7 +188,8 @@ def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     os.makedirs(args.output_dir, exist_ok=True)
     if args.world > 1 and args.rank is None:
-        return launch(args, argv)
+        return launch_ranks("gaussreg_tpu_torch.tools.ddp_check", args.world, args.output_dir,
+                            argv, RANK_TIMEOUT)
     run_rank(args)
     return 0
 

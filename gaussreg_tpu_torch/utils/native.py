@@ -1,5 +1,6 @@
 """ctypes bindings for the repo's native host library (native/gaussreg_native.cpp):
-furthest point sampling for host data loading.
+furthest point sampling for host data loading, and a host voxel-grid
+subsample.
 
 The port's own copy of gaussreg_tpu/utils/native.py. The library is built
 at first use from the repo's source into gaussreg_tpu_torch/_build/ (listed
@@ -66,6 +67,14 @@ def _load():
     ]
     lib.gaussreg_fps.restype = ctypes.c_int
     lib.gaussreg_fps.argtypes = lib.gaussreg_bucket_fps.argtypes
+    lib.gaussreg_grid_subsample.restype = ctypes.c_int64
+    lib.gaussreg_grid_subsample.argtypes = [
+        ctypes.POINTER(ctypes.c_float),
+        ctypes.c_int64,
+        ctypes.c_float,
+        ctypes.POINTER(ctypes.c_float),
+        ctypes.c_int64,
+    ]
     _LIB = lib
     return _LIB
 
@@ -93,3 +102,21 @@ def furthest_point_sample(
     if rc != 0:
         raise RuntimeError(f"native FPS failed: rc={rc}")
     return out
+
+
+def grid_subsample_host(points: np.ndarray, voxel: float, capacity: int):
+    """Voxel-grid subsample on the host: (the first min(total, capacity)
+    voxel points (K, 3) f32, total voxels)."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    pts = np.ascontiguousarray(points, dtype=np.float32)
+    out = np.zeros((capacity, 3), dtype=np.float32)
+    total = lib.gaussreg_grid_subsample(
+        pts.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        pts.shape[0],
+        voxel,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        capacity,
+    )
+    return out[: min(total, capacity)], int(total)

@@ -613,3 +613,123 @@ def test_probe_composite_cores_match_plain(cuda, case):
         assert torch.equal(out[:, 5], ref[:, 5]), core
         err = (out[:, :5] - ref[:, :5]).abs().max().item()
         assert err <= limits[core], (core, err)
+
+
+@pytest.mark.parametrize("w,k", [(25_600, 35), (25_601, 35), (2048 * 13 + 1, 89),
+                                 (30_720, 35), (30_720, 89), (26_000, 700)])
+def test_select_min_k_wide_mode_matches_plain(cuda, w, k):
+    """K3's wide mode (rows past 25 600 columns: the k smallest of each
+    2048-column chunk, then of the chunk winners) against the plain stable
+    sort, bit for bit: at its first width, a last chunk of one column, the
+    level-0 brute-force width 30 720 at make_cfg()'s and the reference's
+    level-0 limits, and k past the last chunk's width (26 000 = 12 chunks
+    and 1 424 columns). Rows of ties (+-0.0), of the radius search's
+    sentinel plateau, and ties across chunks. W = 25 600 still takes the
+    first entry."""
+    from gaussreg_tpu_torch.ops import select_k as sk
+
+    gen = torch.Generator(device=cuda).manual_seed(w + k)
+    x = torch.randint(0, 1 << 20, (96, w), device=cuda, generator=gen).float() / 64.0
+    x[:3] = 0.0
+    x[0, ::2] = -0.0
+    x[3:6, : w - 50] = 1e12  # mostly sentinel, the few real ones at the end
+    x[6, 5] = x[6, 4097] = x[6, w - 1] = -1.0  # one value in three chunks
+    wide, first = sk.WIDE_KERNEL.launches, sk.KERNEL.launches
+    vk, pk = sk.select_min_k(x, k)
+    vp, pp = sk.select_min_k_plain(x, k)
+    torch.cuda.synchronize()
+    assert (sk.WIDE_KERNEL.launches - wide, sk.KERNEL.launches - first) == \
+        ((1, 0) if w >= sk.WIDE_MIN_WIDTH else (0, 1))
+    assert torch.equal(pk, pp)
+    assert torch.equal(vk, vp)
+
+
+def test_select_min_k_wide_mode_limits(cuda):
+    from gaussreg_tpu_torch.ops import select_k as sk
+
+    with pytest.raises(ValueError, match="wide mode"):
+        sk.select_min_k(torch.zeros(2, 30_720, device=cuda), 2000)
+
+
+def test_radius_search_wide_rows_matches_plain(cuda):
+    """The brute-force radius search at a level-0 width (N = 30 720 support
+    points: the wide mode) on the card against the same search on the
+    card's inputs moved to the CPU (the plain stable sort): the card and
+    the CPU form the gram distances with other roundings, so equal up to
+    last-bit swaps, which must be rare."""
+    from gaussreg_tpu_torch.ops import neighbors as nb
+    from gaussreg_tpu_torch.ops import select_k as sk
+
+    rng = np.random.default_rng(3)
+    s = torch.from_numpy(rng.uniform(0, 2.0, size=(30_720, 3)).astype(np.float32))
+    q = s[::10].clone()
+    qm = torch.ones(q.shape[0], dtype=torch.bool)
+    sm = torch.ones(s.shape[0], dtype=torch.bool)
+    sm[-100:] = False
+    before = sk.WIDE_KERNEL.launches
+    got = nb.radius_search(q.to(cuda), s.to(cuda), qm.to(cuda), sm.to(cuda), 0.0625, 35)
+    torch.cuda.synchronize()
+    assert sk.WIDE_KERNEL.launches - before == -(-q.shape[0] // 1024)
+    want = nb.radius_search(q, s, qm, sm, 0.0625, 35)
+    assert (got.cpu() != want).float().mean().item() < 1e-3
+
+
+@pytest.mark.parametrize("case", ["unsorted", "empty_segments", "dropped"])
+def test_segment_accumulate_generic_entry_matches_plain(cuda, case):
+    """K6's own signature on the card: a stable sort of the ids, then the
+    second entry of csrc/segment_accumulate.cu. Equal bit for bit to
+    segment_accumulate_plain on the CPU (a sequential index_add_ in row
+    order), with unsorted ids, empty segments and ids past the table."""
+    from gaussreg_tpu_torch.gs.rasterizer import accumulate as acc
+
+    rng = np.random.default_rng(7)
+    r, num_out = 200_000, 30_001
+    rows = torch.from_numpy(rng.normal(size=(r, 16)).astype(np.float32))
+    gid = rng.integers(0, num_out, size=r)
+    if case == "empty_segments":
+        gid = gid - gid % 5  # four of five rows of the table empty
+    elif case == "dropped":
+        gid[::7] = num_out + rng.integers(0, 3, size=gid[::7].shape)
+    gid = torch.from_numpy(gid.astype(np.int32))
+    before = acc.GENERIC_KERNEL.launches
+    out = acc.segment_accumulate(rows.to(cuda), gid.to(cuda), num_out)
+    torch.cuda.synchronize()
+    assert acc.GENERIC_KERNEL.launches == before + 1
+    assert torch.equal(out.cpu(), acc.segment_accumulate_plain(rows, gid, num_out))
+
+
+@pytest.mark.parametrize("kernel_size", [20, 36])
+def test_kpconv_past_16_kernel_points_on_the_card(cuda, kernel_size):
+    """A make_tiny_cfg() KPConvFPN at kernel_size 20 and 36 on the card
+    takes the einsum route (14 calls, no K2 launch) and agrees with the same
+    model on the CPU within K2's 4e-3 of the max; kpconv_fused_apply still
+    refuses K > 16 on the card."""
+    from gaussreg_tpu_torch.config import make_tiny_cfg
+    from gaussreg_tpu_torch.data.pipeline import make_pair_batch
+    from gaussreg_tpu_torch.data.synthetic import random_pair
+    from gaussreg_tpu_torch.models import kpconv as kp
+    from gaussreg_tpu_torch.models.backbone import KPConvFPN
+    from gaussreg_tpu_torch.ops import kpconv_kernel as kk
+
+    cfg = make_tiny_cfg()
+    batch = make_pair_batch(cfg, *random_pair(cfg, 0, num_points=600), device="cpu")
+    bc = cfg.backbone
+    model = KPConvFPN(batch.features.shape[-1], bc.output_dim, bc.init_dim, kernel_size,
+                      bc.init_radius, bc.init_sigma, bc.group_norm)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        want = model(batch.features, batch.pyramid)
+        gpu = model.to(cuda)
+        pyr = type(batch.pyramid)(*[tuple(a.to(cuda) for a in f) if isinstance(f, tuple)
+                                    else f.to(cuda) for f in batch.pyramid])
+        einsum, k2 = kp.EinsumRoute.calls, kk.KERNEL.launches
+        got = gpu(batch.features.to(cuda), pyr)
+        torch.cuda.synchronize()
+    assert (kp.EinsumRoute.calls - einsum, kk.KERNEL.launches - k2) == (14, 0)
+    for g, w in zip(got, want):
+        scale = w.abs().max().item()
+        assert (g.cpu() - w).abs().max().item() <= 4e-3 * scale
+    nf = torch.zeros(1, 4, 8, 16, device=cuda, dtype=torch.bfloat16)
+    infl = torch.zeros(1, 4, 8, kernel_size, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="K <= 16"):
+        kk.kpconv_fused_apply(nf, infl, torch.zeros(kernel_size, 16, 8, device=cuda))
