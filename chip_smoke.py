@@ -84,10 +84,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    by name.
 
 9. probes: the twins of the TPU probes P1 (three row gathers,
-   gaussreg_tpu_torch/tools/probe_vmem_gather.py) and P2 (the compositing
-   loop with cores A-D, tools/probe_kernels_r5.py) at the probes' shapes,
-   launches counted around their run; held against their plain versions
-   (`probe_phase`, `compare_cores`), timed by graph slopes and bounded.
+   gaussreg_tpu_torch/tools/probe_vmem_gather.py: from device memory, from
+   a table staged in shared memory, and `onehot`, the TPU's one-hot product,
+   here a direct gather of two lanes per 32-byte row) and P2 (the
+   compositing loop with cores A-D, tools/probe_kernels_r5.py) at the
+   probes' shapes, launches counted around their run; held against their
+   plain versions (`probe_phase`, `compare_cores`), timed by graph slopes
+   and bounded. P1 moves ~8 KB (a bound of ~2.6 ns), so its variants are
+   held by launch latency, beside torch.index_select's.
 10. CLIs: `python -m gaussreg_tpu_torch.tools.demo` on phase 3's .ply pair
    with the trained checkpoint (RRE < 5 degrees), again with
    --torch_snapshot on a saved fake reference state dict, and
@@ -130,9 +134,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    branch (K3's generic entry, 13 launches) equal to the fused route's,
    both timed, its K3 calls held and timed; the brute-force radius_search
    at N = M = 30 720 through K3's wide mode, equal to its plain version,
-   timed; K6's own signature (`segment_accumulate`) on one fine step's
+   timed; K6's own signature (`segment_accumulate`, a counting sort over
+   the id range with each run's row order restored) on one fine step's
    gradient rows, bit-equal to its plain version on the host, timed beside
-   index_add_; a make_cfg()-width KPConvFPN forward at kernel_size 20 and
+   index_add_ by graph slopes and by CUDA events, and again with one id
+   holding ~10 % of the rows and with every row on one id (its long-run
+   paths), bit-equal and repeatable; a make_cfg()-width KPConvFPN forward at kernel_size 20 and
    36 (the einsum route: 14 calls, no K2 launch); render_sharded with 2
    gloo ranks on this card (200 000 gaussians, one 640x480 view, forward
    and backward) against render, K4-K6 launched on each rank.
@@ -1009,7 +1016,9 @@ def walked_blocks(starts, kend, nblk):
 
 def probe_phase(dev, kernels):
     """9. The two TPU probes' twins at the probes' shapes: P1 (G=4096, K=128,
-    C=8) and P2 (make_blocks(300, 7)), each variant launched once with the
+    C=8; `onehot` is a direct two-lanes-per-row gather since the card's
+    matrix unit has no place in a gather, its plain version the one-hot
+    product) and P2 (make_blocks(300, 7)), each variant launched once with the
     counts zeroed just before and read just after; then each held against
     its plain version (P1 bit for bit, and equal to table[idx]; P2 by
     compare_cores, and B-D against A), timed by a slope over graph-replayed
@@ -1734,11 +1743,18 @@ def library_phase(cfg, dev, pair, fine_ref, cams):
     pair's reference cloud at the level-0 radius, limit 35) through K3's wide
     mode (30 launches of 1024 query rows), equal to the same search with
     K3's plain version on the card; the search timed; its 30 K3 calls held
-    and timed as in (a). (c) K6's own signature (`segment_accumulate`: a
-    stable id sort and the generic entry) on one fine step's gradient rows
-    and compacted ids per view, equal bit for bit to
-    segment_accumulate_plain on the host, timed (sort included) beside its
-    plain version on the card and index_add_. (d) a make_cfg()-width
+    and timed as in (a). (c) K6's own signature (`segment_accumulate`: the
+    counting-sort entry, four kernels and a memset per launch) on one fine
+    step's gradient rows and compacted ids per view, equal bit for bit to
+    segment_accumulate_plain on the host, timed beside its plain version on
+    the card and index_add_ (into zeros, as the plain version) by graph
+    slopes (entry and index_add_ in turns, twice; the kernels line's `ms`
+    and `library_ms`) and by CUDA events (mean of 20, twice; `events_ms`);
+    then, through the same entry, one id holding ~10 % of the first view's
+    rows (the rest random) and every row on one id, so that the long-run
+    paths (a block's shared-memory sort; its row-order walk of the ids)
+    launch: each equal bit for bit to the plain version and across two
+    calls, and timed. (d) a make_cfg()-width
     KPConvFPN forward on that pair's pyramid at kernel_size 20 and 36
     (seeded flax-distributed weights): 14 einsum-route calls and no K2
     launch each, finite outputs of the expected shapes, timed. (e)
@@ -1869,26 +1885,60 @@ def library_phase(cfg, dev, pair, fine_ref, cams):
             raise AssertionError("segment_accumulate differs from its plain version")
     generic_launches = _cuda.launch_counts()["segment_accumulate_generic"]
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, err=0.0, bytes=0.0, ops=0.0)
+    events = dict(kernel=0.0, library=0.0)
     for (rows_, ids, num_out), _ in calls:
         idx = torch.where((ids >= 0) & (ids < num_out), ids, num_out).long()
         index_add = lambda: torch.zeros((num_out + 1, 16), device=dev).index_add_(0, idx, rows_)
         entry_fn = lambda: accumulate.segment_accumulate(rows_, ids, num_out)
-        t_k = (cuda_ms(entry_fn, reps=20, warmup=3) + cuda_ms(entry_fn, reps=20, warmup=3)) / 2
-        t_l = (cuda_ms(index_add, reps=20, warmup=3) + cuda_ms(index_add, reps=20, warmup=3)) / 2
+        e_k = (cuda_ms(entry_fn, reps=20, warmup=3) + cuda_ms(entry_fn, reps=20, warmup=3)) / 2
+        e_l = (cuda_ms(index_add, reps=20, warmup=3) + cuda_ms(index_add, reps=20, warmup=3)) / 2
+        t_k, t_l = graph_ms(entry_fn), graph_ms(index_add)
+        t_k2, t_l2 = graph_ms(entry_fn), graph_ms(index_add)  # in turns: entry, library, twice
+        t_k, t_l = (t_k + t_k2) / 2, (t_l + t_l2) / 2
         t_p = cuda_ms(lambda: accumulate.segment_accumulate_plain(rows_, ids, num_out), reps=5)
         nbytes, ops, shape = accumulate_generic_cost(rows_, ids, num_out)
-        log(f"segment_accumulate_generic {shape}: equal, kernel (sort included)={t_k:.4f}ms "
-            f"plain={t_p:.4f}ms index_add_={t_l:.4f}ms bound={bound(nbytes, ops, 'f32')[0]:.4f}ms")
+        log(f"segment_accumulate_generic {shape}: equal; graph slope: kernel={t_k:.4f}ms "
+            f"index_add_={t_l:.4f}ms ({t_k / t_l:.2f}x); events (mean of 20, twice): "
+            f"kernel={e_k:.4f}ms index_add_={e_l:.4f}ms ({e_k / e_l:.2f}x); plain={t_p:.4f}ms "
+            f"bound={bound(nbytes, ops, 'f32')[0]:.4f}ms")
         for key, v in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l), ("bytes", nbytes),
                        ("ops", ops)):
             tot[key] += v
-    del calls
+        events["kernel"] += e_k
+        events["library"] += e_l
     if generic_launches != nv:
         raise AssertionError(f"segment_accumulate launched {generic_launches} times for {nv}")
-    entries.append(kernel_entry("segment_accumulate_generic",
-                                "gaussreg_tpu_torch/csrc/segment_accumulate.cu",
-                                "gaussreg_tpu/gs/rasterizer/accumulate.py:131", generic_launches,
-                                tot, "f32"))
+    # runs past the register path: one id holding ~10 % of a view's rows
+    # (the rest random), and every row on one id
+    rows_, ids, num_out = calls[0][0]
+    rng = np.random.default_rng(13)
+    heavy = rng.integers(0, num_out, size=ids.numel())
+    heavy[rng.random(ids.numel()) < 0.1] = num_out // 2
+    one = np.full(ids.numel(), num_out // 3)
+    for what, gid_np in (("one id holding ~10 % of the rows", heavy), ("every row on one id", one)):
+        gid = torch.from_numpy(gid_np.astype(np.int32)).to(dev)
+        before = accumulate.GENERIC_KERNEL.launches
+        out = accumulate.segment_accumulate(rows_, gid, num_out)
+        again = accumulate.segment_accumulate(rows_, gid, num_out)
+        torch.cuda.synchronize()
+        longest = int(torch.bincount(gid).max())
+        if accumulate.GENERIC_KERNEL.launches != before + 2 or not torch.equal(out, again) or \
+                not torch.equal(out.cpu(), accumulate.segment_accumulate_plain(
+                    rows_.cpu(), gid.cpu(), num_out)):
+            raise AssertionError(f"segment_accumulate, {what}: differs from its plain version "
+                                 f"or between two calls")
+        t_e = cuda_ms(lambda: accumulate.segment_accumulate(rows_, gid, num_out), reps=3)
+        log(f"segment_accumulate_generic, {what} (longest run {longest}): equal to its plain "
+            f"version and across two calls, bit for bit; {t_e:.4f} ms (events, mean of 3)")
+    del calls
+    entry = kernel_entry("segment_accumulate_generic",
+                         "gaussreg_tpu_torch/csrc/segment_accumulate.cu",
+                         "gaussreg_tpu/gs/rasterizer/accumulate.py:131", generic_launches, tot,
+                         "f32")
+    entry["events_ms"] = events
+    log(f"segment_accumulate_generic by events: kernel {events['kernel']:.4f} ms, index_add_ "
+        f"{events['library']:.4f} ms")
+    entries.append(entry)
 
     # (d) KPConv past 16 kernel points at full width
     b = pipeline_mod.make_pair_batch(cfg, rp, rf, sp, sf, m, device=dev)

@@ -12,26 +12,27 @@
 //
 // Bound on the card: the K selected rows (32 B each), the K indices and the
 // K output rows; at the probe's shape (G = 4096, K = 128) about 8 KB, ~2 ns
-// at 3.35 TB/s, so every variant is bound by launch latency, and variants
-// (2) and (3) also by the work their form adds: (2) copies the whole 128 KB
-// table into one block's shared memory first; (3) reads the whole table and
-// does 3 x K x G x 8 multiply-adds on tensor cores.
+// at 3.35 TB/s, out of reach of any launch: every variant is bound by launch
+// latency, and variant (2) also by the work its form adds (it copies the
+// whole 128 KB table into one block's shared memory first).
 //
 // (1) global: one thread per output row, two 16-byte loads.
 // (2) shared: each block stages the table in dynamic shared memory with
 //     16-byte cp.async copies (above the 48 KB default, so the launcher
 //     raises the block's limit with cudaFuncSetAttribute), then one thread
 //     per row gathers from it.
-// (3) one-hot: mma.sync m16n8k16 bf16 with f32 accumulation. A block owns 16
-//     output rows; its 8 warps split G. The one-hot A fragments are built in
-//     registers from the indices; B is the table, split in registers into
-//     three bf16 parts hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi -
-//     mid), one product each. Each residual is exact in f32 and lo holds the
-//     last 8 bits, so hi + mid + lo == x; each output has one nonzero
-//     product (1 x part), and every other term adds an exact zero, so the
-//     sums are exact whatever the order, and (hi + mid) + lo gives x.
+// (3) onehot: the TPU kernel's one-hot product exists only because Mosaic
+//     could not gather by a traced index; on this card the matrix unit has
+//     no place in a gather (a one-hot product reads the whole table for
+//     every 16 output rows). So it is a direct row gather laid out for
+//     whole sectors: two lanes per 32-byte row, one 16-byte __ldg each, so
+//     a warp reads 16 whole rows and writes 512 contiguous bytes; both
+//     lanes of a row read its index (one broadcast load). One
+//     block of up to 1024 threads covers K <= 1024 (a thread takes a second
+//     half-row past 512 rows); larger K takes more blocks.
+// The plain version of (3) stays the one-hot product (exact: each output
+// sums one 1 x value and exact zeros).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -39,7 +40,7 @@ namespace {
 
 constexpr int kCols = 8;                       // row width C (two float4)
 constexpr int kMaxSmem = 227 * 1024;           // a block's shared memory on H100
-constexpr int kOnehotWarps = 8;
+constexpr int kGatherThreads = 1024;           // variant (3): one block up to K = 1024
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -47,33 +48,6 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ uint32_t onehot_pair(int idx, int col) {
-  const unsigned short one = 0x3F80;  // bf16 1.0
-  return (idx == col ? one : 0u) | ((idx == col + 1 ? one : 0u) << 16);
-}
-
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Split x into bf16 hi, mid, lo with hi + mid + lo == x exactly.
-__device__ __forceinline__ void split3(float x, __nv_bfloat16& hi, __nv_bfloat16& mid,
-                                       __nv_bfloat16& lo) {
-  hi = __float2bfloat16_rn(x);
-  const float r1 = x - __bfloat162float(hi);
-  mid = __float2bfloat16_rn(r1);
-  lo = __float2bfloat16_rn(r1 - __bfloat162float(mid));
 }
 
 __global__ void gather_global_kernel(const float4* __restrict__ table,
@@ -102,51 +76,12 @@ __global__ void gather_shared_kernel(const float4* __restrict__ table,
   out[2 * r + 1] = stab[2 * i + 1];
 }
 
-__global__ void __launch_bounds__(kOnehotWarps * 32)
-    gather_onehot_kernel(const float* __restrict__ table, const int* __restrict__ idx,
-                         float* __restrict__ out, int g, int k) {
-  __shared__ float red[kOnehotWarps][3][16][kCols];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gr = lane >> 2, q = lane & 3;  // mma group (row / column) and thread in group
-  const int row0 = blockIdx.x * 16 + gr;
-  const int i0 = row0 < k ? idx[row0] : -1;
-  const int i1 = row0 + 8 < k ? idx[row0 + 8] : -1;
-  float acc[3][4] = {};
-  const int steps = (g + 15) / 16;
-  for (int s = warp; s < steps; s += kOnehotWarps) {
-    const int kb = s * 16;
-    // A (16 x 16 one-hot, row major): rows gr and gr + 8, columns kb + 2q (+1) and +8
-    const uint32_t a[4] = {onehot_pair(i0, kb + 2 * q), onehot_pair(i1, kb + 2 * q),
-                           onehot_pair(i0, kb + 2 * q + 8), onehot_pair(i1, kb + 2 * q + 8)};
-    // B (16 x 8, column major): table rows kb + 2q (+1) and +8 (+9), column gr
-    __nv_bfloat16 p[4][3];
-    const int rows[4] = {kb + 2 * q, kb + 2 * q + 1, kb + 2 * q + 8, kb + 2 * q + 9};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float x = rows[j] < g ? __ldg(table + (size_t)rows[j] * kCols + gr) : 0.0f;
-      split3(x, p[j][0], p[j][1], p[j][2]);
-    }
-#pragma unroll
-    for (int part = 0; part < 3; ++part)
-      mma16816(acc[part], a, pack_bf16(p[0][part], p[1][part]), pack_bf16(p[2][part], p[3][part]));
-  }
-  // accumulator layout: (row gr, columns 2q, 2q + 1) and (row gr + 8, same columns)
-#pragma unroll
-  for (int part = 0; part < 3; ++part) {
-    red[warp][part][gr][2 * q] = acc[part][0];
-    red[warp][part][gr][2 * q + 1] = acc[part][1];
-    red[warp][part][gr + 8][2 * q] = acc[part][2];
-    red[warp][part][gr + 8][2 * q + 1] = acc[part][3];
-  }
-  __syncthreads();
-  if (threadIdx.x < 16 * kCols) {
-    const int r = threadIdx.x / kCols, c = threadIdx.x % kCols;
-    float sum[3] = {0.0f, 0.0f, 0.0f};
-    for (int w = 0; w < kOnehotWarps; ++w)
-      for (int part = 0; part < 3; ++part) sum[part] += red[w][part][r][c];
-    const int orow = blockIdx.x * 16 + r;
-    if (orow < k) out[(size_t)orow * kCols + c] = (sum[0] + sum[1]) + sum[2];
-  }
+__global__ void gather_rows_kernel(const float4* __restrict__ table,
+                                   const int* __restrict__ idx, float4* __restrict__ out,
+                                   int k) {
+  const int halves = 2 * k;  // 16-byte half-rows of the output
+  for (int t = blockIdx.x * blockDim.x + threadIdx.x; t < halves; t += gridDim.x * blockDim.x)
+    out[t] = __ldg(table + (size_t)__ldg(idx + (t >> 1)) * 2 + (t & 1));
 }
 
 }  // namespace
@@ -181,8 +116,13 @@ int gaussreg_probe_gather_shared(const float* table, const int* idx, float* out,
 
 int gaussreg_probe_gather_onehot(const float* table, const int* idx, float* out, int g, int k,
                                  cudaStream_t stream) {
-  if (k > 0)
-    gather_onehot_kernel<<<(k + 15) / 16, kOnehotWarps * 32, 0, stream>>>(table, idx, out, g, k);
+  (void)g;
+  if (k > 0) {
+    const int threads = k >= kGatherThreads / 2 ? kGatherThreads : (2 * k + 31) / 32 * 32;
+    const int blocks = (k + kGatherThreads - 1) / kGatherThreads;
+    gather_rows_kernel<<<blocks, threads, 0, stream>>>(reinterpret_cast<const float4*>(table),
+                                                       idx, reinterpret_cast<float4*>(out), k);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -25,11 +25,14 @@ CUDA tensors launch csrc/segment_accumulate.cu; CPU tensors take
 TPU kernel on (rows, ids)) is the oracle of the tests and of chip_smoke.py.
 
 `segment_accumulate(rows, gid, num_out)` is the TPU kernel's own
-signature: on a CUDA tensor a stable sort of the ids (the JAX function
-sorts outside its kernel too) and the second entry of
-csrc/segment_accumulate.cu, which sums each run of equal sorted ids in
-order; on a CPU tensor `segment_accumulate_plain`. The two are equal bit
-for bit. The render path keeps `accumulate_pairs`.
+signature: on a CUDA tensor the second entry of csrc/segment_accumulate.cu,
+a counting sort over the known id range [0, num_out) with each run's row
+order restored before its sum (count, scan, place, then a half-warp per
+output that sorts its run's row indices and adds the rows in that order;
+runs past 32 rows go to a block), so no general sort and no search; one
+launch counted per call. On a CPU tensor `segment_accumulate_plain`. The
+two are equal bit for bit, and repeated calls too: the atomics' order does
+not reach the sum. The render path keeps `accumulate_pairs`.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from gaussreg_tpu_torch.ops import _cuda
 
 NCHAN = 16
 CHUNK = 128
+SCAN_TILE = 2048  # counts per tile of the generic entry's scan (kScanTile)
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 KERNEL = _cuda.register(
@@ -60,8 +64,8 @@ GENERIC_KERNEL = _cuda.register(
     _cuda.CudaKernel(
         "segment_accumulate.cu",
         "gaussreg_segment_accumulate",
-        # rows, gid_sorted, perm, out, num_out, n
-        [_PTR] * 4 + [_INT] * 2,
+        # rows, gid, out, scratch, scratch_len, num_out, n
+        [_PTR] * 4 + [ctypes.c_longlong] + [_INT] * 2,
     ),
 )
 
@@ -150,8 +154,14 @@ def segment_accumulate(rows: torch.Tensor, gid: torch.Tensor, num_out: int):
     rows = rows.contiguous()
     _cuda.check_cuda_tensor(rows, "rows", torch.float32, 2)
     _cuda.check_cuda_tensor(gid, "gid", torch.int32, 1)
-    gid_sorted, perm = torch.sort(gid, stable=True)
+    if rows.data_ptr() % 16:  # the kernel reads rows in 16-byte pieces
+        rows = rows.clone()
+    n, m = rows.shape[0], num_out + 1
+    # the scan's status words (two int32 per tile) and tile counter, the
+    # counts, the starts and the order list; the launch zeroes what it needs
+    scratch = torch.empty(2 * -(-m // SCAN_TILE) + 2 + 2 * m + n, dtype=torch.int32,
+                          device=rows.device)
     out = torch.empty((num_out, NCHAN), dtype=torch.float32, device=rows.device)
-    GENERIC_KERNEL.launch(rows.data_ptr(), gid_sorted.data_ptr(), perm.data_ptr(),
-                          out.data_ptr(), num_out, rows.shape[0])
+    GENERIC_KERNEL.launch(rows.data_ptr(), gid.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                          scratch.numel(), num_out, n)
     return out

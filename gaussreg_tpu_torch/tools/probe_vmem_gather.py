@@ -12,11 +12,16 @@ own kernel in csrc/probe_gather.cu (see the notes there):
   `kernel`, table in pltpu.ANY);
 - shared: the block stages the whole table in shared memory with cp.async,
   then gathers (`kernel2`, jnp.take from VMEM);
-- onehot: a one-hot (K, G) bf16 operand times the table, split into three
-  bf16 parts, on mma.sync tensor cores (`kernel3`, the one-hot matmul).
+- onehot: the twin of `kernel3`, the one-hot (K, G) x (G, C) matmul, which
+  the TPU probe wrote only because Mosaic could not gather by a traced
+  index. On this card the matrix unit has no place in a gather, so the
+  kernel is a direct gather laid out for whole 32-byte sectors (two lanes
+  per row, one 16-byte load each); its plain version stays the one-hot
+  product, which is exact.
 
-Each wrapper takes its plain PyTorch version for CPU tensors and launches
-its kernel for CUDA tensors. main() prints each variant's max error against
+The function moves ~8 KB at the probe's shape (a bound of ~2.6 ns), so
+every variant is held by launch latency. Each wrapper takes its plain
+PyTorch version for CPU tensors and launches its kernel for CUDA tensors. main() prints each variant's max error against
 table[idx] and its time on the card: a slope over graph-replayed launches
 (utils.timing.slope), beside torch.index_select, the PyTorch call that
 computes the same function.

@@ -674,28 +674,64 @@ def test_radius_search_wide_rows_matches_plain(cuda):
     assert (got.cpu() != want).float().mean().item() < 1e-3
 
 
-@pytest.mark.parametrize("case", ["unsorted", "empty_segments", "dropped"])
-def test_segment_accumulate_generic_entry_matches_plain(cuda, case):
-    """K6's own signature on the card: a stable sort of the ids, then the
-    second entry of csrc/segment_accumulate.cu. Equal bit for bit to
-    segment_accumulate_plain on the CPU (a sequential index_add_ in row
-    order), with unsorted ids, empty segments and ids past the table."""
-    from gaussreg_tpu_torch.gs.rasterizer import accumulate as acc
+GENERIC_CASES = ["unsorted", "empty_segments", "dropped", "one_id", "boundary_runs", "descending",
+                 "all_dropped", "num_out_1", "no_rows"]
 
-    rng = np.random.default_rng(7)
+
+def generic_case(case, rng):
+    """(rows (R, 16) f32, gid (R,) int32, num_out) on the CPU for one case of
+    K6's generic entry."""
     r, num_out = 200_000, 30_001
-    rows = torch.from_numpy(rng.normal(size=(r, 16)).astype(np.float32))
     gid = rng.integers(0, num_out, size=r)
     if case == "empty_segments":
         gid = gid - gid % 5  # four of five rows of the table empty
     elif case == "dropped":
         gid[::7] = num_out + rng.integers(0, 3, size=gid[::7].shape)
-    gid = torch.from_numpy(gid.astype(np.int32))
+        gid[1::7] = -1 - rng.integers(0, 3, size=gid[1::7].shape)
+    elif case == "one_id":
+        gid = np.full(r, 12_345)  # one run of every row: the block's row-order walk
+    elif case == "boundary_runs":
+        # runs of 15-17 and 31-33 rows (either side of the register path's
+        # 32 and of its 16-row batches) on distinct ids, shuffled
+        lengths = np.resize([15, 16, 17, 31, 32, 33, 1, 2], 6_000)
+        ids = rng.permutation(num_out)[:lengths.size]
+        gid = rng.permutation(np.repeat(ids, lengths))
+        r = gid.size
+    elif case == "descending":
+        gid = np.sort(gid)[::-1].copy()
+    elif case == "all_dropped":
+        gid = num_out + rng.integers(0, 100, size=r)
+    elif case == "num_out_1":
+        num_out = 1
+        gid = rng.integers(-1, 2, size=r)
+    elif case == "no_rows":
+        r, gid = 0, np.zeros(0)
+    rows = torch.from_numpy(rng.normal(size=(r, 16)).astype(np.float32))
+    return rows, torch.from_numpy(gid.astype(np.int32)), num_out
+
+
+@pytest.mark.parametrize("case", GENERIC_CASES)
+def test_segment_accumulate_generic_entry_matches_plain(cuda, case):
+    """K6's own signature on the card (the counting-sort entry of
+    csrc/segment_accumulate.cu). Equal bit for bit to segment_accumulate_plain
+    on the CPU (a sequential index_add_ in row order) with unsorted ids,
+    empty segments, ids past the table and below 0, one id holding all
+    200 000 rows, runs of 15-17 and 31-33 rows, ids in descending row order,
+    every id dropped, num_out = 1 and no rows; one launch counted per call,
+    and a second call on the same inputs equal bit for bit (the atomics'
+    order must not show)."""
+    from gaussreg_tpu_torch.gs.rasterizer import accumulate as acc
+
+    rows, gid, num_out = generic_case(case, np.random.default_rng(7))
+    rows_d, gid_d = rows.to(cuda), gid.to(cuda)
     before = acc.GENERIC_KERNEL.launches
-    out = acc.segment_accumulate(rows.to(cuda), gid.to(cuda), num_out)
+    out = acc.segment_accumulate(rows_d, gid_d, num_out)
+    again = acc.segment_accumulate(rows_d, gid_d, num_out)
     torch.cuda.synchronize()
-    assert acc.GENERIC_KERNEL.launches == before + 1
+    assert acc.GENERIC_KERNEL.launches == before + 2
+    assert out.shape == (num_out, 16)
     assert torch.equal(out.cpu(), acc.segment_accumulate_plain(rows, gid, num_out))
+    assert torch.equal(again, out)
 
 
 @pytest.mark.parametrize("kernel_size", [20, 36])

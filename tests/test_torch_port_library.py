@@ -389,12 +389,16 @@ def test_grid_subsample_host_equals_jax():
         np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("case", ["random", "unsorted_empty", "dropped"])
+@pytest.mark.parametrize("case", ["random", "unsorted_empty", "dropped", "one_run",
+                                  "boundary_runs"])
 def test_segment_accumulate_matches_jax_kernel(case):
     """The public K6 signature on the CPU (its plain version): equal to a
     sequential scatter-add in row order, and to the interpreted Pallas
     kernel within the bound of tests/test_torch_port_raster.py's plain
-    test (the kernel's one-hot product adds each 128-row block at once)."""
+    test (the kernel's one-hot product adds each 128-row block at once).
+    `one_run` puts every row on one id; `boundary_runs` makes runs of 15-17
+    and 31-33 rows, either side of the CUDA entry's 16-row batches and its
+    32-row register path."""
     from gaussreg_tpu.gs.rasterizer.accumulate import segment_accumulate as jseg
     from gaussreg_tpu_torch.gs.rasterizer.accumulate import segment_accumulate
 
@@ -406,6 +410,14 @@ def test_segment_accumulate_matches_jax_kernel(case):
         gid = rng.permutation(np.repeat(np.arange(0, num_out, 3), 15)[:r]).astype(np.int32)
     elif case == "dropped":
         gid[::3] = num_out
+    elif case == "one_run":
+        gid[:] = 100
+    elif case == "boundary_runs":
+        lengths = np.resize([15, 16, 17, 31, 32, 33], 48)  # 1 152 rows, then 128 more
+        ids = rng.permutation(num_out)[:lengths.size + 1]
+        runs = np.repeat(ids[:-1], lengths)
+        gid = rng.permutation(np.concatenate([runs, np.repeat(ids[-1:], r - runs.size)]))
+        gid = gid.astype(np.int32)
     out = segment_accumulate(_t(rows), _t(gid), num_out)
     seq = torch.zeros((num_out, 16))
     for i in range(r):
