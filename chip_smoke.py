@@ -14,7 +14,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    launch counts are zeroed just before and read just after: 13 window
    selections (K1), 14 KPConv aggregations (K2) and one fused mutual-top-k
    threshold launch (K3's `kth_largest_rows_cols`) per pair, and no launch
-   of the generic k-min selection (`select_min_k`).
+   of the generic k-min selection on any of its four routes
+   (`select_min_k`, `select_min_k_wide`, `select_min_k_rounds`,
+   `select_min_k_rounds_wide`).
 3. .ply entry point: api.register_gs_pair(fine=False) on two .ply files of
    one synthetic scene written by the port's gs/ply.py writer (counts
    zeroed and read around it too); the transform must be finite and its
@@ -36,8 +38,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    launches) and beside its bound, once on the captured block (left in L2)
    and once on six rotating copies of it (101 MB, out of L2). The generic
    select_min_k, no longer on the path, is launched on that route's two
-   inputs with its count read around that run, held against its plain
-   version and timed (`k3_phase`).
+   inputs with its routes' counts read around that run (each call must
+   take the route select_k.route names, printed per shape), held against
+   its plain version and timed (`k3_phase`, `k3_routes_run`).
    k2 backward: the backward of each of one pair's 14 captured K2 calls
    (the VJP of the plain einsums) against reference_apply's own autograd
    and timed, then a grad-enabled backbone forward and backward at
@@ -91,7 +94,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    probes' shapes, launches counted around their run; held against their
    plain versions (`probe_phase`, `compare_cores`), timed by graph slopes
    and bounded. P1 moves ~8 KB (a bound of ~2.6 ns), so its variants are
-   held by launch latency, beside torch.index_select's.
+   held by launch latency, beside torch.index_select's; `kernel2`'s twin
+   (the table staged across a cluster of 8 blocks) is printed beside
+   `kernel3`'s (a direct gather): the difference is the staging's cost.
 10. CLIs: `python -m gaussreg_tpu_torch.tools.demo` on phase 3's .ply pair
    with the trained checkpoint (RRE < 5 degrees), again with
    --torch_snapshot on a saved fake reference state dict, and
@@ -131,10 +136,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 13. the library surface beyond the main path (`library_phase`): one
    held-out pair's pyramid through the legacy select_kernel="pallas"
-   branch (K3's generic entry, 13 launches) equal to the fused route's,
-   both timed, its K3 calls held and timed; the brute-force radius_search
-   at N = M = 30 720 through K3's wide mode, equal to its plain version,
-   timed; K6's own signature (`segment_accumulate`, a counting sort over
+   branch (K3's `select_min_k` route, 13 launches) equal to the fused
+   route's, both timed, its K3 calls held and timed; the brute-force
+   radius_search at N = M = 30 720 through K3's `select_min_k_wide` route,
+   equal to its plain version, timed; K3's two rounds routes (k past 128)
+   at k = 129 on the widest pyramid call's rows and on one search block,
+   held and timed (each phase prints the route of each call); K6's own
+   signature (`segment_accumulate`, a counting sort over
    the id range with each run's row order restored) on one fine step's
    gradient rows, bit-equal to its plain version on the host, timed beside
    index_add_ by graph slopes and by CUDA events, and again with one id
@@ -146,9 +154,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 Prints the build seconds, the card's name and power limit, a line per
 pair, a line per kernel call, the profiles, a {"kernels": [...]} JSON line
-listing seventeen entries (K1, K2, K3's two entries, K4-K6, P1's three,
-P2's four, and from phase 13 K3's generic entry on the pallas pyramid, its
-wide mode and K6's generic entry; K2's entry also carries its backward's
+listing nineteen entries (K1, K2, K3's two entries, K4-K6, P1's three,
+P2's four, and from phase 13 K3's `select_min_k` route on the pallas
+pyramid, its `select_min_k_wide` route, its two rounds routes and K6's
+generic entry; K2's entry also carries its backward's
 time, and its forward's and backward's device ms in one profiled train
 step), the card's name and power limit again, and as the last line
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -334,8 +343,10 @@ def select_topk(x, k):
 
 
 def select_cost(x, k):
+    """The row read once, the (R, k) values and positions written; one
+    comparison per element (what any selection needs, whatever its k)."""
     r, w = x.shape
-    return r * w * 4 + r * k * 8, float(r * w * k), f"R={r} W={w} k={k}"
+    return r * w * 4 + r * k * 8, float(r * w), f"R={r} W={w} k={k}"
 
 
 def exact_thresholds(a, b, _args):
@@ -426,10 +437,7 @@ def k3_phase(calls, launches):
 
     gen_calls = [((-s.reshape(p * w, w), k), {}),
                  ((-s.transpose(1, 2).reshape(p * w, w), k), {})]
-    before = select_k.KERNEL.launches
-    for (x, kk), _ in gen_calls:
-        select_k.select_min_k(x, kk)
-    gen_launches = select_k.KERNEL.launches - before
+    gen_launches = k3_routes_run(gen_calls, "the generic run")["select_min_k"]
     rows, tot = measure("select_min_k", gen_calls, select_k.select_min_k,
                         select_k.select_min_k_plain, exact, select_topk, select_cost, "f32")
     for row in rows:
@@ -437,6 +445,29 @@ def k3_phase(calls, launches):
     gen_entry = kernel_entry("select_min_k", "gaussreg_tpu_torch/csrc/select_k.cu",
                              "gaussreg_tpu/ops/select_k.py:88", gen_launches, tot, "f32")
     return [gen_entry, fused_entry]
+
+
+def k3_routes_run(calls, what):
+    """Launch select_min_k once on each captured (x, k) with K3's route
+    counts read around the run; each call must have taken the route that
+    select_k.route names for its shape, and no other route launched.
+    Returns the counts."""
+    from gaussreg_tpu_torch.ops import select_k
+
+    before = {n: kern.launches for n, kern in select_k.ROUTES.items()}
+    for (x, kk), _ in calls:
+        select_k.select_min_k(x, kk)
+    moved = {n: kern.launches - before[n] for n, kern in select_k.ROUTES.items()}
+    want = {n: 0 for n in select_k.ROUTES}
+    for (x, kk), _ in calls:
+        want[select_k.route(x.shape[1], kk, x.shape[0])] += 1
+    shapes = sorted({(tuple(x.shape), kk, select_k.route(x.shape[1], kk, x.shape[0]))
+                     for (x, kk), _ in calls}, reverse=True)
+    log(f"K3 routes, {what}: " + "; ".join(f"{shape} k={kk} -> {r}" for shape, kk, r in shapes)
+        + f"; launches {moved}")
+    if moved != want:
+        raise AssertionError(f"K3 {what}: launches {moved}, the routes name {want}")
+    return moved
 
 
 def random_params_(module, seed):
@@ -1069,6 +1100,13 @@ def probe_phase(dev, kernels):
             "launches": counts[f"probe_gather_{v}"], "max_abs_err": (out - ref).abs().max().item(),
             "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_lib,
         })
+    p1_ms = {e["name"]: e["ms"] for e in kernels[-len(p1.PLAIN):]}
+    staging = p1_ms["probe_gather_shared"] - p1_ms["probe_gather_onehot"]
+    kernels[-len(p1.PLAIN) + list(p1.PLAIN).index("shared")]["staging_ms"] = staging
+    log(f"probe_gather_shared (kernel2, the table staged across a cluster of "
+        f"{p1.CLUSTER_BLOCKS} blocks) {p1_ms['probe_gather_shared']:.5f} ms beside "
+        f"probe_gather_onehot (kernel3, a direct gather) {p1_ms['probe_gather_onehot']:.5f} ms "
+        f"and torch.index_select {t_lib:.5f} ms: the staging's share {staging:.5f} ms")
 
     # P2
     clock_mhz = float(subprocess.run(
@@ -1675,6 +1713,9 @@ def accumulate_generic_cost(rows, gid, num_out):
             f"R={rows.shape[0]} num_out={num_out}")
 
 
+ROUNDS_K = 129  # phase 13(b2): the rounds routes' smallest k
+
+
 def radius_search_plain():
     """The brute-force radius search with K3's plain version in place of the
     kernel (same device, same distances)."""
@@ -1735,16 +1776,21 @@ def library_phase(cfg, dev, pair, fine_ref, cams):
     (a) `make_pair_batch` on one held-out pair with every grid search
     through the legacy select_kernel="pallas" branch (K3's generic entry
     over each query's window distances; launch counts zeroed before and read
-    after: 13 select_min_k launches, no window_select_idx), its pyramid
+    after: 13 launches of the select_min_k route, no other K3 route, no
+    window_select_idx; `k3_routes_run` prints each call's route), its pyramid
     equal to the fused route's index for index; both pyramids timed (host
     clock, a device sync, second of two runs); the 13 captured K3 calls held
     against the plain version and timed beside torch.topk and their bound.
     (b) the brute-force radius_search at N = M = 30 720 (level 0 of that
-    pair's reference cloud at the level-0 radius, limit 35) through K3's wide
-    mode (30 launches of 1024 query rows), equal to the same search with
-    K3's plain version on the card; the search timed; its 30 K3 calls held
-    and timed as in (a). (c) K6's own signature (`segment_accumulate`: the
-    counting-sort entry, four kernels and a memset per launch) on one fine
+    pair's reference cloud at the level-0 radius, limit 35) through K3's
+    select_min_k_wide route (30 launches of 1024 query rows), equal to the
+    same search with K3's plain version on the card; the search timed; its
+    30 K3 calls held and timed as in (a). (b2) K3's rounds routes at k =
+    ROUNDS_K = 129 on the widest pyramid call's rows (select_min_k_rounds)
+    and on the search's first block (select_min_k_rounds_wide), each
+    launched once with the counts read around it, held and timed. (c) K6's
+    own signature (`segment_accumulate`: the counting-sort entry, four
+    kernels and a memset per launch) on one fine
     step's gradient rows and compacted ids per view, equal bit for bit to
     segment_accumulate_plain on the host, timed beside its plain version on
     the card and index_add_ (into zeros, as the plain version) by graph
@@ -1764,7 +1810,7 @@ def library_phase(cfg, dev, pair, fine_ref, cams):
     (SHARDED_MAX_TILES), forward and backward, against render in this
     process (`compare_sharded`); K4/K5/K6 launches, forward
     and backward ms and the gradient all-reduce's ms per rank.
-    Returns the three kernel entries."""
+    Returns the five kernel entries."""
     import functools
 
     import numpy as np
@@ -1812,11 +1858,14 @@ def library_phase(cfg, dev, pair, fine_ref, cams):
     log(f"pyramid (13 grid searches, one make_cfg() pair): pallas route (K3 select_min_k) "
         f"equal to the fused route (K1) index for index; {t_pallas:.3f} ms against "
         f"{t_fused:.3f} ms (host clock, device synced, make_pair_batch); launches {counts}")
-    if pallas_launches != 13 or counts["window_select_idx"] != 0:
+    if (pallas_launches != 13 or counts["window_select_idx"] != 0
+            or any(counts[r] for r in select_k.ROUTES if r != "select_min_k")):
         raise AssertionError(f"the pallas pyramid launched {counts}")
+    k3_routes_run(c3.calls, "the pallas pyramid")
     rows, tot = measure("select_min_k (pallas pyramid)", c3.calls, select_k.select_min_k,
                         select_k.select_min_k_plain, exact, select_topk, select_cost, "f32",
                         plain_reps=2)
+    widest = max((args for args, _ in c3.calls), key=lambda a: a[0].numel())[0]
     del c3
     for row in rows:
         log(row)
@@ -1850,11 +1899,14 @@ def library_phase(cfg, dev, pair, fine_ref, cams):
         f"{wide_launches}, equal to its plain version; {t_search:.3f} ms (host clock), "
         f"{t_search2:.3f} ms (events, mean of 3), with the plain selection {t_search_plain:.3f} "
         f"ms; {found:.2f} neighbours per query")
-    if wide_launches != -(-pts.shape[0] // 1024) or counts["select_min_k"] != 0:
+    if (wide_launches != -(-pts.shape[0] // 1024)
+            or any(counts[r] for r in select_k.ROUTES if r != "select_min_k_wide")):
         raise AssertionError(f"radius_search launched {counts}")
+    k3_routes_run(cw.calls, "radius_search")
     rows, tot = measure("select_min_k_wide", cw.calls, select_k.select_min_k,
                         select_k.select_min_k_plain, exact, select_topk, select_cost, "f32",
                         plain_reps=2)
+    block = cw.calls[0][0][0]
     del cw
     log(rows[0])
     log(f"select_min_k_wide: {len(rows)} calls, shapes as above")
@@ -1863,6 +1915,18 @@ def library_phase(cfg, dev, pair, fine_ref, cams):
     entry["radius_search_ms"] = t_search2
     entries.append(entry)
     del fused
+
+    # (b2) K3's rounds routes, for k past the filter's 128: k = ROUNDS_K on
+    # the widest pyramid call's rows and on the search's first block
+    for name, x in (("select_min_k_rounds", widest), ("select_min_k_rounds_wide", block)):
+        calls = [((x, ROUNDS_K), {})]
+        launches = k3_routes_run(calls, f"k = {ROUNDS_K}")[name]
+        rows, tot = measure(name, calls, select_k.select_min_k, select_k.select_min_k_plain,
+                            exact, select_topk, select_cost, "f32", plain_reps=2)
+        log(rows[0])
+        entries.append(kernel_entry(name, "gaussreg_tpu_torch/csrc/select_k.cu",
+                                    "gaussreg_tpu/ops/select_k.py:88", launches, tot, "f32"))
+    del widest, block
 
     # (c) K6's own signature on one fine step's rows
     with Capture(raster_mod, "rasterize_backward") as c5, \
@@ -2053,7 +2117,7 @@ def main() -> int:
         isotropic_transform_error,
     )
     from gaussreg_tpu_torch.models.registration import create_model
-    from gaussreg_tpu_torch.ops import fused_select, kpconv_kernel
+    from gaussreg_tpu_torch.ops import fused_select, kpconv_kernel, select_k
     from gaussreg_tpu_torch.ops import neighbors as neighbors_mod
 
     # 1. build (the path's kernels and the probes' of phase 9)
@@ -2082,7 +2146,7 @@ def main() -> int:
         pairs.append((seed, random_pair(cfg, seed)))
         log(f"data: pair {seed} generated on the host in {time.perf_counter() - t_data:.2f} s")
     per_pair = {"window_select_idx": 13, "kpconv_fused_apply": 14, "kth_largest_rows_cols": 1,
-                "select_min_k": 0}
+                **{route: 0 for route in select_k.ROUTES}}
     _cuda.reset_launch_counts()
     results = []
     t_all = time.perf_counter()

@@ -10,8 +10,11 @@ own kernel in csrc/probe_gather.cu (see the notes there):
 
 - global: each thread reads its row from device memory (the probe's
   `kernel`, table in pltpu.ANY);
-- shared: the block stages the whole table in shared memory with cp.async,
-  then gathers (`kernel2`, jnp.take from VMEM);
+- shared: a cluster of 8 blocks stages the table in its distributed
+  shared memory, an eighth per block with one bulk async copy (the TMA's
+  bulk form), then two lanes per row read it from the owning block
+  (`kernel2`, jnp.take from VMEM); the table may hold up to
+  MAX_TABLE_ROWS rows, the cluster's shared memory;
 - onehot: the twin of `kernel3`, the one-hot (K, G) x (G, C) matmul, which
   the TPU probe wrote only because Mosaic could not gather by a traced
   index. On this card the matrix unit has no place in a gather, so the
@@ -24,7 +27,8 @@ every variant is held by launch latency. Each wrapper takes its plain
 PyTorch version for CPU tensors and launches its kernel for CUDA tensors. main() prints each variant's max error against
 table[idx] and its time on the card: a slope over graph-replayed launches
 (utils.timing.slope), beside torch.index_select, the PyTorch call that
-computes the same function.
+computes the same function, and the shared variant's time beside the
+direct gather's: the staging's cost.
 """
 
 from __future__ import annotations
@@ -48,8 +52,20 @@ KERNELS = {
     )
     for name in ("global", "shared", "onehot")
 }
-# a block's dynamic shared memory on the H100 (variant shared stages the table)
-MAX_SHARED_BYTES = 227 * 1024
+# variant shared stages the table across a cluster of CLUSTER_BLOCKS blocks,
+# each slice of ceil(G / CLUSTER_BLOCKS) rows in one block's shared memory
+# (227 KB on the H100, 16 B of it for the slice's mbarrier)
+CLUSTER_BLOCKS = 8
+SLICE_MAX_ROWS = (227 * 1024 - 16) // (C * 4)
+MAX_TABLE_ROWS = CLUSTER_BLOCKS * SLICE_MAX_ROWS
+MAX_SHARED_BYTES = MAX_TABLE_ROWS * C * 4
+
+
+def check_shared_capacity(g: int) -> None:
+    """Raise unless a g-row table fits in the shared variant's cluster."""
+    if -(-g // CLUSTER_BLOCKS) > SLICE_MAX_ROWS:
+        raise ValueError(f"gather shared: a {g}-row table does not fit in the cluster's shared "
+                         f"memory ({MAX_TABLE_ROWS} rows, {MAX_SHARED_BYTES} bytes)")
 
 
 def gather_global_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -85,8 +101,8 @@ def gather(variant: str, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor
     _cuda.check_cuda_tensor(table, "table", torch.float32, 2)
     _cuda.check_cuda_tensor(idx, "idx", torch.int32, 1)
     g, k = table.shape[0], idx.shape[0]
-    if variant == "shared" and g * C * 4 > MAX_SHARED_BYTES:
-        raise ValueError(f"gather shared: a {g}-row table does not fit in shared memory")
+    if variant == "shared":
+        check_shared_capacity(g)
     out = torch.empty((k, C), dtype=torch.float32, device=table.device)
     KERNELS[variant].launch(table.data_ptr(), idx.data_ptr(), out.data_ptr(), g, k)
     return out
@@ -121,12 +137,15 @@ def main() -> int:
         out = gather(variant, table, idx)
         err = (out - ref).abs().max().item()
         print(f"{variant}: max err {err:.3e} ({'bit for bit' if torch.equal(out, ref) else 'DIFFERS'})")
+    ms = {}
     for variant in PLAIN:
-        dt = slope(lambda i, v=variant: gather(v, *inputs[i % len(inputs)]), 8, 40)
-        print(f"variant {variant}: {dt * 1e3:.5f} ms per launch")
+        ms[variant] = slope(lambda i, v=variant: gather(v, *inputs[i % len(inputs)]), 8, 40) * 1e3
+        print(f"variant {variant}: {ms[variant]:.5f} ms per launch")
     dt = slope(lambda i: torch.index_select(inputs[i % len(inputs)][0], 0,
                                             inputs[i % len(inputs)][1]), 8, 40)
     print(f"torch.index_select: {dt * 1e3:.5f} ms per call")
+    print(f"staging: shared {ms['shared']:.5f} ms against the direct gather (onehot) "
+          f"{ms['onehot']:.5f} ms, {ms['shared'] - ms['onehot']:.5f} ms more")
     return 0
 
 

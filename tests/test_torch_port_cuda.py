@@ -122,10 +122,87 @@ def test_select_min_k_kernel_matches_plain(cuda, w, k):
     x = -torch.exp(torch.randint(-20, 5, (777, w), device=cuda, generator=gen) / 4.0)
     x[:5, :] = 0.0  # rows of ties, -0.0 and +0.0 included
     x[0, ::2] = -0.0
+    before = sk.KERNEL.launches
     vk, pk = sk.select_min_k(x, k)
+    torch.cuda.synchronize()
+    assert sk.KERNEL.launches == before + 1
     vp, pp = sk.select_min_k_plain(x, k)
     assert torch.equal(pk, pp)
     assert torch.equal(vk, vp)
+
+
+def select_rows(w, k, cuda, seed):
+    """Rows that exercise every part of K3's routes: random values with
+    ties, zeros of both signs, the radius search's 1e12 sentinel plateau
+    with fewer than k real values, equal values on both sides of each warp
+    slice's border of the wide filter route (and of each 2048-column chunk
+    of the rounds' wide mode), and descending rows (every key enters a
+    lane's queue; lanes run dry and re-read their share)."""
+    from gaussreg_tpu_torch.ops import select_k as sk
+
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randint(0, 1 << 12, (40, w), device=cuda, generator=gen).float() / 64.0
+    x[0] = 0.0
+    x[0, ::2] = -0.0
+    x[1] = torch.randint(0, 3, (w,), device=cuda, generator=gen).float() - 1.0
+    x[1][x[1] == 0] = -0.0
+    x[2:4] = 1e12  # the plateau, fewer than k real values after it
+    x[2, w - max(1, k // 2):] = torch.arange(max(1, k // 2), device=cuda, dtype=torch.float32)
+    x[3, :: max(1, w // max(1, k - 1))] = 5.0
+    units = w // 4 if w % 4 == 0 and k <= 4 else w  # float4s where the kernel reads them so
+    scale = w // units
+    wpr = sk.FILTER_WIDE_WARPS  # the wide filter's slices
+    borders = {(units // wpr * part + min(part, units % wpr)) * scale for part in range(1, wpr)}
+    borders |= set(range(sk.WIDE_CHUNK, w, sk.WIDE_CHUNK))
+    for b in sorted(borders):  # equal values astride each border
+        if 0 < b < w:
+            x[4:6, b - 1] = -2.0
+            x[4:6, b] = -2.0
+    x[6] = torch.arange(w, 0, -1, device=cuda, dtype=torch.float32)  # descending
+    x[7] = torch.arange(w, 0, -1, device=cuda, dtype=torch.float32).div(8).floor()
+    return x
+
+
+ROUTE_WIDTHS = [16, 128, 2304, 25_600, 25_601, 30_720]
+ROUTE_KS = [1, 3, 35, 89, 128, 129, 700]
+
+
+@pytest.mark.parametrize("w,k", [(w, k) for w in ROUTE_WIDTHS for k in ROUTE_KS if k <= w])
+def test_select_min_k_routes_match_plain(cuda, w, k):
+    """Every route of K3 (select_k.route) bit for bit against the plain
+    stable sort, with only the route's own launch count moved by the call."""
+    from gaussreg_tpu_torch.ops import select_k as sk
+
+    x = select_rows(w, k, cuda, w * 1000 + k)
+    name = sk.route(w, k, x.shape[0])
+    before = {n: kern.launches for n, kern in sk.ROUTES.items()}
+    vk, pk = sk.select_min_k(x, k)
+    torch.cuda.synchronize()
+    moved = {n: kern.launches - before[n] for n, kern in sk.ROUTES.items()}
+    assert moved == {n: int(n == name) for n in sk.ROUTES}, (name, moved)
+    vp, pp = sk.select_min_k_plain(x, k)
+    assert torch.equal(pk, pp), (name, (pk != pp).nonzero()[:5].tolist())
+    assert torch.equal(vk.view(torch.int32), vp.view(torch.int32)), name
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("w,k", [(2304, 35), (30_720, 35), (999, 89), (8192, 128), (4096, 3)])
+def test_select_min_k_filter_both_forms_any_width(cuda, wide, w, k):
+    """The filter entry in both its forms (one warp per row, and one block
+    of FILTER_WIDE_WARPS = 4 warps per row) at widths on either side of
+    FILTER_WIDE_MIN_WIDTH, whichever the route would take, bit for bit,
+    unaligned rows (a view one column in) included."""
+    from gaussreg_tpu_torch.ops import select_k as sk
+
+    x = select_rows(w + 1, k, cuda, int(wide))[:, 1:].contiguous()
+    for rows in (x, select_rows(w + 1, k, cuda, int(wide)).reshape(-1)[1:1 + 40 * w].view(40, w)):
+        vals = torch.empty((40, k), device=cuda)
+        pos = torch.empty((40, k), device=cuda, dtype=torch.int32)
+        sk.KERNEL.launch(rows.data_ptr(), vals.data_ptr(), pos.data_ptr(), 40, w, k, int(wide))
+        vp, pp = sk.select_min_k_plain(rows, k)
+        torch.cuda.synchronize()
+        assert torch.equal(pos, pp)
+        assert torch.equal(vals.view(torch.int32), vp.view(torch.int32))
 
 
 def test_wrappers_reject_bad_input(cuda):
@@ -567,12 +644,18 @@ def test_forward_refuses_a_cluster_it_cannot_place(cuda):
 # step of one lg, should the two log1p differ in the last bit).
 
 
-@pytest.mark.parametrize("g,k", [(4096, 128), (1000, 77), (16, 1), (7264, 300)])
+@pytest.mark.parametrize("g,k", [(4096, 128), (1000, 77), (16, 1), (7264, 300), (9, 40),
+                                 (58_104, 5000)])
 def test_probe_gathers_are_exact(cuda, g, k):
     from gaussreg_tpu_torch.tools import probe_vmem_gather as p1
 
     table, idx = p1.make_inputs(g + k, g=g, k=k, device=cuda)
     idx[0] = g - 1
+    slice_rows = -(-g // p1.CLUSTER_BLOCKS)  # the shared variant's slices
+    for r in range(p1.CLUSTER_BLOCKS):  # an index in every block's slice, first and last row
+        if r * slice_rows < g and 2 * r + 2 < k:
+            idx[1 + 2 * r] = r * slice_rows
+            idx[2 + 2 * r] = min(g, (r + 1) * slice_rows) - 1
     ref = table[idx.long()]
     for variant, kernel in p1.KERNELS.items():
         before = kernel.launches
@@ -584,12 +667,17 @@ def test_probe_gathers_are_exact(cuda, g, k):
 
 
 def test_probe_gather_rejects_a_table_past_shared_memory(cuda):
+    """The shared variant stages the table across a cluster: the largest
+    table that fits gathers exactly, one row more is refused."""
     from gaussreg_tpu_torch.tools import probe_vmem_gather as p1
 
-    table, idx = p1.make_inputs(0, g=8192, k=8, device=cuda)
+    table, idx = p1.make_inputs(0, g=p1.MAX_TABLE_ROWS + 1, k=8, device=cuda)
+    idx[0] = p1.MAX_TABLE_ROWS
     with pytest.raises(ValueError, match="shared memory"):
         p1.gather("shared", table, idx)
     assert torch.equal(p1.gather("global", table, idx), table[idx.long()])
+    fits, idx = table[:-1].contiguous(), idx.clamp_max(p1.MAX_TABLE_ROWS - 1)
+    assert torch.equal(p1.gather("shared", fits, idx), fits[idx.long()])
 
 
 @pytest.mark.parametrize("case", ["blocks", "ragged"])
@@ -618,14 +706,16 @@ def test_probe_composite_cores_match_plain(cuda, case):
 @pytest.mark.parametrize("w,k", [(25_600, 35), (25_601, 35), (2048 * 13 + 1, 89),
                                  (30_720, 35), (30_720, 89), (26_000, 700)])
 def test_select_min_k_wide_mode_matches_plain(cuda, w, k):
-    """K3's wide mode (rows past 25 600 columns: the k smallest of each
-    2048-column chunk, then of the chunk winners) against the plain stable
-    sort, bit for bit: at its first width, a last chunk of one column, the
-    level-0 brute-force width 30 720 at make_cfg()'s and the reference's
-    level-0 limits, and k past the last chunk's width (26 000 = 12 chunks
-    and 1 424 columns). Rows of ties (+-0.0), of the radius search's
-    sentinel plateau, and ties across chunks. W = 25 600 still takes the
-    first entry."""
+    """K3 on wide rows against the plain stable sort, bit for bit: the
+    filter's wide route (one block of FILTER_WIDE_WARPS warps per row) for
+    k <= FILTER_WIDE_MAX_K, its narrow route (one warp per row) up to
+    k = 128, the rounds' wide mode (the k smallest of each 2048-column
+    chunk, then of the chunk winners) for k = 700 past 25 600 columns; at
+    the level-0
+    brute-force width 30 720 at make_cfg()'s and the reference's level-0
+    limits, and k past the last chunk's width (26 000 = 12 chunks and 1 424
+    columns). Rows of ties (+-0.0), of the radius search's sentinel
+    plateau, and ties across chunks and slices."""
     from gaussreg_tpu_torch.ops import select_k as sk
 
     gen = torch.Generator(device=cuda).manual_seed(w + k)
@@ -634,12 +724,14 @@ def test_select_min_k_wide_mode_matches_plain(cuda, w, k):
     x[0, ::2] = -0.0
     x[3:6, : w - 50] = 1e12  # mostly sentinel, the few real ones at the end
     x[6, 5] = x[6, 4097] = x[6, w - 1] = -1.0  # one value in three chunks
-    wide, first = sk.WIDE_KERNEL.launches, sk.KERNEL.launches
+    name = sk.route(w, k, x.shape[0])
+    assert name == ("select_min_k_wide" if k <= sk.FILTER_WIDE_MAX_K else
+                    "select_min_k" if k <= sk.FILTER_MAX_K else "select_min_k_rounds_wide")
+    before = sk.ROUTES[name].launches
     vk, pk = sk.select_min_k(x, k)
     vp, pp = sk.select_min_k_plain(x, k)
     torch.cuda.synchronize()
-    assert (sk.WIDE_KERNEL.launches - wide, sk.KERNEL.launches - first) == \
-        ((1, 0) if w >= sk.WIDE_MIN_WIDTH else (0, 1))
+    assert sk.ROUTES[name].launches == before + 1
     assert torch.equal(pk, pp)
     assert torch.equal(vk, vp)
 
