@@ -14,9 +14,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    launch counts are zeroed just before and read just after: 13 window
    selections (K1), 14 KPConv aggregations (K2) and one fused mutual-top-k
    threshold launch (K3's `kth_largest_rows_cols`) per pair, and no launch
-   of the generic k-min selection on any of its four routes
-   (`select_min_k`, `select_min_k_wide`, `select_min_k_rounds`,
-   `select_min_k_rounds_wide`).
+   of the generic k-min selection on any of its three routes
+   (`select_min_k`, `select_min_k_wide`, `select_min_k_radix`).
 3. .ply entry point: api.register_gs_pair(fine=False) on two .ply files of
    one synthetic scene written by the port's gs/ply.py writer (counts
    zeroed and read around it too); the transform must be finite and its
@@ -139,9 +138,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    branch (K3's `select_min_k` route, 13 launches) equal to the fused
    route's, both timed, its K3 calls held and timed; the brute-force
    radius_search at N = M = 30 720 through K3's `select_min_k_wide` route,
-   equal to its plain version, timed; K3's two rounds routes (k past 128)
-   at k = 129 on the widest pyramid call's rows and on one search block,
-   held and timed (each phase prints the route of each call); K6's own
+   equal to its plain version, timed; K3 past k = 128 (the filter or the
+   radix select, as the route names) on the widest pyramid call's rows at
+   k = 129 and 700, on one search block at k = 129, and through
+   knn_search at k = 2 048 on the same 30 720 points (30 blocks), equal to
+   its plain version, each call held and timed
+   (each phase prints the route of each call); K6's own
    signature (`segment_accumulate`, a counting sort over
    the id range with each run's row order restored) on one fine step's
    gradient rows, bit-equal to its plain version on the host, timed beside
@@ -154,9 +156,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 Prints the build seconds, the card's name and power limit, a line per
 pair, a line per kernel call, the profiles, a {"kernels": [...]} JSON line
-listing nineteen entries (K1, K2, K3's two entries, K4-K6, P1's three,
+listing twenty-one entries (K1, K2, K3's two entries, K4-K6, P1's three,
 P2's four, and from phase 13 K3's `select_min_k` route on the pallas
-pyramid, its `select_min_k_wide` route, its two rounds routes and K6's
+pyramid, its `select_min_k_wide` route, its four runs past k = 128 (named
+by route and shape: `select_min_k:widest_k129`,
+`select_min_k_radix:widest_k700`, `select_min_k:block_k129`,
+`select_min_k_radix:knn_k2048`) and K6's
 generic entry; K2's entry also carries its backward's
 time, and its forward's and backward's device ms in one profiled train
 step), the card's name and power limit again, and as the last line
@@ -1713,7 +1718,11 @@ def accumulate_generic_cost(rows, gid, num_out):
             f"R={rows.shape[0]} num_out={num_out}")
 
 
-ROUNDS_K = 129  # phase 13(b2): the rounds routes' smallest k
+# phase 13(b2): K3 past k = 128, on the widest pyramid call's rows and the
+# search's first block (the first k past the lane queues of 8), and
+# knn_search's k (past the 200 KiB of chunk winners the card once refused)
+BIG_KS = (129, 700)
+KNN_K = 2048
 
 
 def radius_search_plain():
@@ -1785,10 +1794,15 @@ def library_phase(cfg, dev, pair, fine_ref, cams):
     pair's reference cloud at the level-0 radius, limit 35) through K3's
     select_min_k_wide route (30 launches of 1024 query rows), equal to the
     same search with K3's plain version on the card; the search timed; its
-    30 K3 calls held and timed as in (a). (b2) K3's rounds routes at k =
-    ROUNDS_K = 129 on the widest pyramid call's rows (select_min_k_rounds)
-    and on the search's first block (select_min_k_rounds_wide), each
-    launched once with the counts read around it, held and timed. (c) K6's
+    30 K3 calls held and timed as in (a). (b2) K3 past k = 128 (the
+    filter or the radix select, as select_k.route names them): on the
+    widest pyramid call's rows (61 440 x 2 304) at each k of
+    BIG_KS, on the search's first block (1 024 x 30 720) at k = 129, and
+    knn_search at k = KNN_K on the same level-0 points (its 30 blocks of
+    1 024 query rows; launch counts zeroed before and read after), equal
+    to the same search with K3's plain version on the card; each call
+    launched once more with the counts read around it (`k3_routes_run`),
+    held and timed as in (a). (c) K6's
     own signature (`segment_accumulate`: the counting-sort entry, four
     kernels and a memset per launch) on one fine
     step's gradient rows and compacted ids per view, equal bit for bit to
@@ -1810,7 +1824,7 @@ def library_phase(cfg, dev, pair, fine_ref, cams):
     (SHARDED_MAX_TILES), forward and backward, against render in this
     process (`compare_sharded`); K4/K5/K6 launches, forward
     and backward ms and the gradient all-reduce's ms per rank.
-    Returns the five kernel entries."""
+    Returns the seven kernel entries."""
     import functools
 
     import numpy as np
@@ -1916,17 +1930,35 @@ def library_phase(cfg, dev, pair, fine_ref, cams):
     entries.append(entry)
     del fused
 
-    # (b2) K3's rounds routes, for k past the filter's 128: k = ROUNDS_K on
-    # the widest pyramid call's rows and on the search's first block
-    for name, x in (("select_min_k_rounds", widest), ("select_min_k_rounds_wide", block)):
-        calls = [((x, ROUNDS_K), {})]
-        launches = k3_routes_run(calls, f"k = {ROUNDS_K}")[name]
-        rows, tot = measure(name, calls, select_k.select_min_k, select_k.select_min_k_plain,
-                            exact, select_topk, select_cost, "f32", plain_reps=2)
+    # (b2) K3 past k = 128: the widest pyramid call's rows, the search's
+    # first block, and knn_search on the same points
+    big = [(f"widest_k{kk}", [((widest, kk), {})]) for kk in BIG_KS]
+    big.append(("block_k129", [((block, 129), {})]))
+    _cuda.reset_launch_counts()
+    with Capture(nb, "select_min_k") as ck:
+        got = nb.knn_search(pts, pts, msk, msk, KNN_K)
+    counts = _cuda.launch_counts()
+    with Swap(nb, "select_min_k", select_k.select_min_k_plain):
+        want = nb.knn_search(pts, pts, msk, msk, KNN_K)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"knn_search at k = {KNN_K} differs from its plain version in "
+                             f"{(got[0] != want[0]).sum().item()} entries")
+    log(f"knn_search N = M = {pts.shape[0]}, k = {KNN_K}: equal to its plain version; "
+        f"launches {counts}")
+    if sum(counts[r] for r in select_k.ROUTES) != -(-pts.shape[0] // 1024):
+        raise AssertionError(f"knn_search launched {counts}")
+    big.append((f"knn_k{KNN_K}", ck.calls))
+    del ck, got, want
+    for what, calls in big:
+        launches = k3_routes_run(calls, what)
+        name = select_k.route(calls[0][0][0].shape[1], calls[0][0][1], calls[0][0][0].shape[0])
+        rows, tot = measure(f"{name}:{what}", calls, select_k.select_min_k,
+                            select_k.select_min_k_plain, exact, select_topk, select_cost, "f32",
+                            plain_reps=2)
         log(rows[0])
-        entries.append(kernel_entry(name, "gaussreg_tpu_torch/csrc/select_k.cu",
-                                    "gaussreg_tpu/ops/select_k.py:88", launches, tot, "f32"))
-    del widest, block
+        entries.append(kernel_entry(f"{name}:{what}", "gaussreg_tpu_torch/csrc/select_k.cu",
+                                    "gaussreg_tpu/ops/select_k.py:88", launches[name], tot, "f32"))
+    del widest, block, big
 
     # (c) K6's own signature on one fine step's rows
     with Capture(raster_mod, "rasterize_backward") as c5, \

@@ -14,7 +14,7 @@
 // positions written: at the brute-force search's (1024, 30 720) blocks
 // 125.8 MB, 37.6 us at 3.35 TB/s; at the LGR shape (32 768, 128) 16.8 MB.
 //
-// Entry gaussreg_select_min_k_filter (k <= 128, any width; the routes
+// Entry gaussreg_select_min_k_filter (any 0 < k <= W, any width; the routes
 // select_min_k and select_min_k_wide of ops/select_k.py): a threshold
 // filter over a row streamed once from device memory, after FAISS's
 // WarpSelect (Johnson, Douze and Jegou, "Billion-scale similarity search
@@ -27,48 +27,59 @@
 //   winners that sit together (a sentinel plateau, points in spatial
 //   order) would then empty one lane's queue again and again;
 // - each lane keeps the L smallest keys it has seen sorted in registers
-//   (its thread queue; L = 4 up to kSmallQueueMaxK, else 8); a key is
-//   compared once with the queue's last key and almost every key stops
-//   there;
+//   (its thread queue; L = 4 up to kSmallQueueMaxK, 8 up to
+//   kMidQueueMaxK, kLargeQueue past it); a key is compared once with the
+//   queue's last key and almost every key stops there;
 // - the warp then takes its smallest keys in rounds: two redux.sync minima
 //   (the keys' high words, then the low words of the lanes holding that
 //   high word) give the warp's smallest queue head, and the lane that
 //   owned it pops it. A lane that pops its last key having dropped keys is
 //   refilled by the whole warp: every lane reads every 32nd of that lane's
-//   columns (one load latency, not a walk of the lane's share) and L
-//   rounds hand it its next L keys above the last one popped. So the
-//   result is exact for any data;
-// - narrow rows: one warp per row, four rows per block, k rounds. Wide
-//   rows (the entry's `wide`): one block of kBlockWarps = 4 warps per row,
-//   in one launch; each warp takes a slice and runs ceil(k / 4) rounds;
-//   the largest of the slices' last keys bounds the row's k-th key (the
-//   slices' keys so far are 4 * ceil(k / 4) >= k keys), so each warp then
-//   stops at its first key above that bound; each key of the slices'
-//   sorted lists finds its rank among them by binary searches in shared
-//   memory, and ranks under k are written. No scratch buffer, no second
-//   launch. ops/select_k.py picks the form by rows, width and k
-//   (`route`; tools/select_variants.py sweeps both forms over them).
+//   columns (one load latency, not a walk of the lane's share), keeps the
+//   smallest kRefillQueue above the last key popped, and rounds hand the
+//   lane its next keys, up to L, stopping early where a lane of the refill
+//   runs dry having dropped keys. So the result is exact for any data;
+// - narrow rows: one warp per row, four rows per block, k rounds; round j's
+//   key waits in lane j % 32 and the warp stores 32 keys at once, so the
+//   form keeps no list and takes any k. Wide rows (the entry's `wide`):
+//   one block of kBlockWarps = 4 warps per row, in one launch; each warp
+//   takes a slice and runs ceil(k / 4) rounds; the largest of the slices'
+//   last keys bounds the row's k-th key (the slices' keys so far are
+//   4 * ceil(k / 4) >= k keys), so each warp then stops at its first key
+//   above that bound; each key of the slices' sorted lists (4 * k * 8
+//   bytes of dynamic shared memory, so k <= kWideMaxK = 6 400) finds its
+//   rank among them by binary searches, and ranks under k are written. No
+//   scratch buffer, no second launch. ops/select_k.py picks the form by
+//   rows, width and k (`route`; tools/select_variants.py sweeps both forms
+//   over them).
 // The value written is rebuilt from the key's ordered bits (a zero is
 // read back from the row, for its sign).
-// Cost: per key a make-key, a 64-bit compare and, rarely, a queue insert;
-// per row k (narrow) or about 4 * ceil(k / 4) (wide) rounds of two
-// reductions.
+// Cost: per key a make-key, a 64-bit compare and, rarely, a queue insert
+// of L compare-exchanges; per row k (narrow) or about 4 * ceil(k / 4)
+// (wide) rounds of two reductions and a pop of L register moves, and per
+// refill a re-read of the lane's share and up to L rounds. A lane pops
+// about k / 32 keys, so past k = 192 a longer queue trades refills for
+// dearer inserts and pops (kMidQueueMaxK, kLargeQueue: tools/select_variants.py
+// times copies of this file at each length).
 //
-// Entries gaussreg_select_min_k_rounds and gaussreg_select_min_k_rounds_wide
-// (k > 128, the routes select_min_k_rounds and select_min_k_rounds_wide):
-// the k selection rounds of warp_select.cuh over a row's keys staged in
-// shared memory (one warp per row; W * 8 bytes of keys up to kMaxSmem,
-// W <= 25 600), and past that width the same per 2048-column chunk
-// (stage 1: one warp per (row, chunk)), then over the row's nchunks * k
-// chunk winners (stage 2: one warp per row), the JAX package's two-stage
-// top_k (ops/neighbors.py:400-408). The winners of the row are among the
-// winners of their chunks, and the keys carry the row's flat positions, so
-// the order and the ties are those of one pass. A chunk narrower than k
-// pads its list with the empty key, which sorts after every real key. The
-// chunk winners go to a scratch buffer that the wrapper allocates
-// (R * nchunks * k keys). Each round is a 64-bit butterfly and a lane
-// whose four registers run dry re-scans its keys: the rounds, not the
-// bytes, bound these entries.
+// Entry gaussreg_select_min_k_radix (the route select_min_k_radix of
+// ops/select_k.py, for large k where the row and its keys fit in kMaxSmem
+// of shared memory): K3's second design. The filter pays about k rounds a
+// row and, past k = 128, refills that re-read a lane's share, so for
+// large k it lost to torch.topk at every swept width
+// (tools/select_variants.py). One block per row: the row's ordered bits
+// staged in shared memory (one read of device memory, the top digit
+// counted on the way); the k-th smallest key found digit by digit from
+// 8-bit histograms in shared memory (four passes over the value bits,
+// then passes over the positions of the values equal to it only while
+// ties straddle the k-th place); the k keys at or below it gathered by
+// warp-aggregated slots; a bitonic sort of them in shared memory; the
+// first k written. Cost per row: four passes over W words of shared
+// memory (atomics for the keys still in play) and about
+// kp log2(kp)^2 / 4 compare-exchanges (kp = k rounded up to a power of
+// two), whatever the data but for ties. Its shared memory (4 W + 8 kp
+// bytes) sets how many blocks an SM holds, so the block takes 512
+// threads past 16 384 columns where that holds more threads at once.
 //
 // Entry gaussreg_kth_largest_rows_cols: the mutual-top-k thresholds
 // of local-to-global registration, gaussreg_tpu/models/matching.py:354-359,
@@ -96,11 +107,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "warp_select.cuh"
-
 namespace {
-
-constexpr int kMaxSmem = 200 * 1024;
 
 __device__ __forceinline__ uint32_t ordered_bits(float v) {
   const uint32_t u = __float_as_uint(v == 0.0f ? 0.0f : v);
@@ -111,15 +118,20 @@ __device__ __forceinline__ unsigned long long make_key(float v, unsigned pos) {
   return ((unsigned long long)ordered_bits(v) << 32) | pos;
 }
 
-// ---- the filter entry (k <= kFilterMaxK) ----
+// ---- the filter entry ----
 
+constexpr unsigned long long kNone = ~0ull;  // the empty key, after every real key
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kFilterMaxK = 128;
-constexpr int kSmallQueueMaxK = 48;  // L = 4 up to here, else 8
+constexpr int kSmallQueueMaxK = 48;  // L = 4 up to here
+constexpr int kMidQueueMaxK = 192;   // L = 8 up to here
+constexpr int kLargeQueue = 16;      // L past kMidQueueMaxK
+constexpr int kRefillQueue = 8;      // a refill's per-lane queue (at most L)
 constexpr int kUnroll = 2;           // 4-byte loads in flight per lane: 4 * kUnroll
 constexpr int kVecUnroll = 2;        // 16-byte loads in flight per lane
 constexpr int kVecMaxK = 4;          // 16-byte loads up to this k (with L = 4 = kVecMaxK)
 constexpr int kBlockWarps = 4;       // a block's warps: four narrow rows or one wide row
+constexpr int kMaxSmem = 200 * 1024;
+constexpr int kWideMaxK = kMaxSmem / (kBlockWarps * 8);  // the wide form's lists
 
 // A lane's thread queue: the L smallest keys it was offered, ascending
 // (kNone past them), and how many it was offered (counted by the caller):
@@ -131,7 +143,7 @@ struct LaneQueue {
 
   __device__ __forceinline__ void reset() {
 #pragma unroll
-    for (int i = 0; i < L; ++i) k[i] = warp_select::kNone;
+    for (int i = 0; i < L; ++i) k[i] = kNone;
     seen = 0;
   }
 
@@ -150,7 +162,7 @@ struct LaneQueue {
   __device__ __forceinline__ void pop() {
 #pragma unroll
     for (int i = 0; i + 1 < L; ++i) k[i] = k[i + 1];
-    k[L - 1] = warp_select::kNone;
+    k[L - 1] = kNone;
   }
 };
 
@@ -240,14 +252,19 @@ __device__ __forceinline__ unsigned long long warp_min_key(unsigned long long ke
 
 // Lane `src` ran dry having dropped keys: the warp re-reads src's share of
 // columns [u0, u1) (columns u0 + src + 32 t), each lane every 32nd of them,
-// so one load latency instead of src's whole walk, and hands src its next
-// L keys above `floor` (L rounds) and their count. (Only the 4-byte loads
-// reach here: with 16-byte loads no lane can run dry.)
+// so one load latency instead of src's whole walk; each lane keeps its P
+// smallest keys above `floor`, and rounds hand src its next keys, L of
+// them unless a lane of the refill runs dry having dropped keys first
+// (its next key might then be below the other lanes' heads). src's count
+// is left above L exactly when its share holds keys past those handed.
+// (Only the 4-byte loads reach here: with 16-byte loads no lane can run
+// dry.)
 template <int L>
 __device__ __forceinline__ void refill(LaneQueue<L>& q, const float* __restrict__ xr, int u0,
                                        int u1, int lane, int src, unsigned long long floor) {
   constexpr int kLoads = 4;
-  LaneQueue<L> part;
+  constexpr int P = L < kRefillQueue ? L : kRefillQueue;
+  LaneQueue<P> part;
   part.reset();
   for (int u = u0 + src + 32 * lane; u < u1; u += kLoads * 32 * 32) {
     float v[kLoads];
@@ -268,13 +285,18 @@ __device__ __forceinline__ void refill(LaneQueue<L>& q, const float* __restrict_
     }
   }
   const int seen = __reduce_add_sync(kFull, part.seen);
+  int given = L;  // uniform over the warp
 #pragma unroll
   for (int i = 0; i < L; ++i) {
-    const unsigned long long best = warp_min_key(part.k[0]);
-    if (best != warp_select::kNone && part.k[0] == best) part.pop();
-    if (lane == src) q.k[i] = best;
+    if (i < given) {
+      const unsigned long long best = warp_min_key(part.k[0]);
+      const bool won = best != kNone && part.k[0] == best;
+      if (won) part.pop();
+      if (lane == src) q.k[i] = best;
+      if (P < L && __any_sync(kFull, won && part.k[0] == kNone && part.seen > P)) given = i + 1;
+    }
   }
-  if (lane == src) q.seen = seen;
+  if (lane == src) q.seen = seen + (L - given);
 }
 
 // One round: the warp's smallest queue head (kNone when every queue is
@@ -284,91 +306,97 @@ template <int L, bool kVec>
 __device__ __forceinline__ unsigned long long next_key(LaneQueue<L>& q, const float* xr, int u0,
                                                        int u1, int lane, bool last) {
   const unsigned long long best = warp_min_key(q.k[0]);
-  const bool won = best != warp_select::kNone && q.k[0] == best;
+  const bool won = best != kNone && q.k[0] == best;
   if (won) q.pop();
   // 16-byte loads are taken only for k <= kVecMaxK = L: a lane pops at
   // most k keys, so it runs dry at most in the last round
   if constexpr (!kVec) {
-    const unsigned dry =
-        __ballot_sync(kFull, won && !last && q.k[0] == warp_select::kNone && q.seen > L);
+    const unsigned dry = __ballot_sync(kFull, won && !last && q.k[0] == kNone && q.seen > L);
     if (dry) refill<L>(q, xr, u0, u1, lane, __ffs(dry) - 1, best);
   }
   return best;
 }
 
-// A block of kBlockWarps warps: four narrow rows, a warp each, or (kWide)
-// one row, a slice per warp.
-template <int L, bool kVec, bool kWide>
+// Narrow rows: a block of kBlockWarps warps, a row each. Round j's key
+// waits in lane j % 32 until the warp stores 32 keys at once.
+template <int L, bool kVec>
 __global__ void __launch_bounds__(kBlockWarps * 32)
-select_filter_kernel(const float* __restrict__ x, float* __restrict__ vals,
+select_narrow_kernel(const float* __restrict__ x, float* __restrict__ vals,
                      int* __restrict__ pos_out, int num_rows, int w, int k) {
-  constexpr int wpr = kWide ? kBlockWarps : 1;
-  constexpr int rows_per_block = kBlockWarps / wpr;
-  __shared__ unsigned long long lists[kBlockWarps][kFilterMaxK];
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * kBlockWarps + (threadIdx.x >> 5);
+  if (row >= num_rows) return;  // uniform over the warp; no block barrier below
+  const float* xr = x + (size_t)row * w;
+  const int units = kVec ? w >> 2 : w;
+  LaneQueue<L> q;
+  q.reset();
+  scan_lane<L, kVec>(xr, 0, units, lane, q);
+  unsigned long long mine = kNone;
+  for (int j = 0; j < k; ++j) {
+    const unsigned long long best = next_key<L, kVec>(q, xr, 0, units, lane, j + 1 == k);
+    if (lane == (j & 31)) mine = best;
+    if ((j & 31) == 31 || j + 1 == k) {
+      const int i = (j & ~31) + lane;
+      if (i <= j) {
+        vals[row * k + i] = key_value(mine, xr);
+        pos_out[row * k + i] = (int)(unsigned)mine;
+      }
+    }
+  }
+}
+
+// Wide rows: a block of kBlockWarps warps per row, a slice each; the
+// slices' lists (kBlockWarps * k keys) in dynamic shared memory.
+template <int L, bool kVec>
+__global__ void __launch_bounds__(kBlockWarps * 32)
+select_wide_kernel(const float* __restrict__ x, float* __restrict__ vals,
+                   int* __restrict__ pos_out, int w, int k) {
+  extern __shared__ unsigned long long lists[];
   __shared__ unsigned long long bounds[kBlockWarps];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int units = kVec ? w >> 2 : w;  // of the row
-  unsigned long long* list = lists[warp];
-  const int part = warp % wpr;
-  const long long row = (long long)blockIdx.x * rows_per_block + warp / wpr;
-  const bool active = row < num_rows;  // uniform over the warp
+  const long long row = blockIdx.x;
   const float* xr = x + (size_t)row * w;
+  const int units = kVec ? w >> 2 : w;  // of the row
+  unsigned long long* list = lists + (size_t)warp * k;
   // this warp's slice [u0, u1) of the row
-  const int u0 = units / wpr * part + min(part, units % wpr);
-  const int u1 = u0 + units / wpr + (part < units % wpr);
+  const int u0 = units / kBlockWarps * warp + min(warp, units % kBlockWarps);
+  const int u1 = u0 + units / kBlockWarps + (warp < units % kBlockWarps);
   LaneQueue<L> q;
   q.reset();
-  if (active) scan_lane<L, kVec>(xr, u0, u1, lane, q);
-  // A slice's first m = ceil(k / wpr) keys, over the row's slices, are
-  // wpr * m >= k keys: the largest of the slices' m-th keys bounds the
-  // row's k-th, and a slice stops at its first key above that bound.
-  const int m = (k + wpr - 1) / wpr;
+  scan_lane<L, kVec>(xr, u0, u1, lane, q);
+  // A slice's first m = ceil(k / kBlockWarps) keys, over the row's slices,
+  // are >= k keys: the largest of the slices' m-th keys bounds the row's
+  // k-th, and a slice stops at its first key above that bound.
+  const int m = (k + kBlockWarps - 1) / kBlockWarps;
   int j = 0;
-  if (active) {
-    for (; j < m; ++j) {
-      const unsigned long long best = next_key<L, kVec>(q, xr, u0, u1, lane, j + 1 == k);
-      if (lane == 0) list[j] = best;
-    }
+  for (; j < m; ++j) {
+    const unsigned long long best = next_key<L, kVec>(q, xr, u0, u1, lane, j + 1 == k);
+    if (lane == 0) list[j] = best;
   }
-  if (!kWide) {
-    __syncwarp();
-    if (active) {
-      for (int i = lane; i < k; i += 32) {
-        const unsigned long long key = list[i];
-        vals[row * k + i] = key_value(key, xr);
-        pos_out[row * k + i] = (int)(unsigned)key;
-      }
-    }
-    return;
-  }
-  if (lane == 0) bounds[warp] = active ? list[m - 1] : 0ull;
+  if (lane == 0) bounds[warp] = list[m - 1];
   __syncthreads();
-  if (active) {
-    unsigned long long bound = 0;
-    for (int o = warp - part; o < warp - part + wpr; ++o) bound = max(bound, bounds[o]);
-    for (; j < k; ++j) {
-      const unsigned long long best = next_key<L, kVec>(q, xr, u0, u1, lane, j + 1 == k);
-      if (best > bound) break;  // uniform over the warp
-      if (lane == 0) list[j] = best;
-    }
-    for (int i = j + lane; i < k; i += 32) list[i] = warp_select::kNone;
+  unsigned long long bound = 0;
+  for (int o = 0; o < kBlockWarps; ++o) bound = max(bound, bounds[o]);
+  for (; j < k; ++j) {
+    const unsigned long long best = next_key<L, kVec>(q, xr, u0, u1, lane, j + 1 == k);
+    if (best > bound) break;  // uniform over the warp
+    if (lane == 0) list[j] = best;
   }
+  for (int i = j + lane; i < k; i += 32) list[i] = kNone;
   // Merge the slices' lists: a key's rank is its place in its own list
-  // plus the keys below it in the row's other lists (keys are unique).
+  // plus the keys below it in the other lists (keys are unique).
   __syncthreads();
-  const int per_row = wpr * k;
-  for (int e = threadIdx.x; e < rows_per_block * per_row; e += blockDim.x) {
-    const int rb = e / per_row, own = (e % per_row) / k, i = e % k;
-    const long long r = (long long)blockIdx.x * rows_per_block + rb;
-    const unsigned long long key = lists[rb * wpr + own][i];
-    if (r >= num_rows || key == warp_select::kNone) continue;
-    int rank = i;
-    for (int o = 0; o < wpr; ++o)
-      if (o != own) rank += count_below(lists[rb * wpr + o], k, key);
+  for (int e = threadIdx.x; e < kBlockWarps * k; e += blockDim.x) {
+    const int own = e / k;
+    const unsigned long long key = lists[e];
+    if (key == kNone) continue;
+    int rank = e - own * k;
+    for (int o = 0; o < kBlockWarps; ++o)
+      if (o != own) rank += count_below(lists + (size_t)o * k, k, key);
     if (rank < k) {
-      vals[r * k + rank] = key_value(key, x + (size_t)r * w);
-      pos_out[r * k + rank] = (int)(unsigned)key;
+      vals[row * k + rank] = key_value(key, xr);
+      pos_out[row * k + rank] = (int)(unsigned)key;
     }
   }
 }
@@ -376,125 +404,257 @@ select_filter_kernel(const float* __restrict__ x, float* __restrict__ vals,
 template <int L, bool kVec>
 int launch_filter(const float* x, float* vals, int* pos, int num_rows, int w, int k, bool wide,
                   cudaStream_t stream) {
-  const int rows_per_block = wide ? 1 : kBlockWarps;
-  const unsigned blocks = (unsigned)((num_rows + rows_per_block - 1) / rows_per_block);
-  if (wide)
-    select_filter_kernel<L, kVec, true><<<blocks, kBlockWarps * 32, 0, stream>>>(
-        x, vals, pos, num_rows, w, k);
-  else
-    select_filter_kernel<L, kVec, false><<<blocks, kBlockWarps * 32, 0, stream>>>(
-        x, vals, pos, num_rows, w, k);
+  if (!wide) {
+    const unsigned blocks = (unsigned)((num_rows + kBlockWarps - 1) / kBlockWarps);
+    select_narrow_kernel<L, kVec><<<blocks, kBlockWarps * 32, 0, stream>>>(x, vals, pos,
+                                                                           num_rows, w, k);
+    return (int)cudaGetLastError();
+  }
+  const int smem = kBlockWarps * k * 8;
+  static int attr_bytes = 0;  // the limit already set (raised only, once per size)
+  if (smem > attr_bytes) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        select_wide_kernel<L, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    attr_bytes = smem;
+  }
+  select_wide_kernel<L, kVec><<<(unsigned)num_rows, kBlockWarps * 32, smem, stream>>>(
+      x, vals, pos, w, k);
   return (int)cudaGetLastError();
 }
 
-// ---- the rounds entries (k > kFilterMaxK) ----
+// ---- the radix entry ----
 
-__global__ void select_min_k_kernel(const float* __restrict__ x,
-                                    float* __restrict__ vals,
-                                    int* __restrict__ pos_out, int num_rows,
-                                    int w, int k) {
-  extern __shared__ unsigned long long smem_keys[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
-  if (row >= num_rows) return;  // no block-wide barrier below
-  unsigned long long* keys = smem_keys + (size_t)warp * w;
+constexpr int kRadixBins = 256;         // 8-bit digits
+constexpr int kRadixWideCols = 16384;   // 512 threads a block may pay past this width
+constexpr int kRadixLoads = 4;          // loads in flight per thread while staging
+
+// The dynamic shared memory of a radix block: the row's ordered bits
+// (padded to 16 bytes), then kp keys.
+__host__ __device__ __forceinline__ long long radix_smem_bytes(int w, int kp) {
+  return (long long)((w + 3) & ~3) * 4 + (long long)kp * 8;
+}
+
+// Stage row xr's ordered bits in shared memory and count their top digits
+// in this warp's histogram: kRadixLoads 16-byte loads in flight per
+// thread on 16-byte aligned rows, 4 * kRadixLoads 4-byte loads otherwise.
+template <int kThreads>
+__device__ __forceinline__ void stage_row(const float* __restrict__ xr, int w, uint32_t* bits,
+                                          int* hist) {
+  if ((w & 3) == 0 && ((uintptr_t)xr & 15) == 0) {
+    const float4* x4 = reinterpret_cast<const float4*>(xr);
+    uint4* b4 = reinterpret_cast<uint4*>(bits);
+    const int n = w >> 2;
+    for (int i0 = threadIdx.x; i0 < n; i0 += kRadixLoads * kThreads) {
+      float4 v[kRadixLoads];
+#pragma unroll
+      for (int j = 0; j < kRadixLoads; ++j) {
+        const int i = i0 + j * kThreads;
+        v[j] = i < n ? __ldg(x4 + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int j = 0; j < kRadixLoads; ++j) {
+        if (i0 + j * kThreads >= n) continue;
+        const uint4 b = make_uint4(ordered_bits(v[j].x), ordered_bits(v[j].y),
+                                   ordered_bits(v[j].z), ordered_bits(v[j].w));
+        b4[i0 + j * kThreads] = b;
+        atomicAdd(hist + (b.x >> 24), 1);
+        atomicAdd(hist + (b.y >> 24), 1);
+        atomicAdd(hist + (b.z >> 24), 1);
+        atomicAdd(hist + (b.w >> 24), 1);
+      }
+    }
+  } else {
+    constexpr int kPer = 4 * kRadixLoads;
+    for (int i0 = threadIdx.x; i0 < w; i0 += kPer * kThreads) {
+      float v[kPer];
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int i = i0 + j * kThreads;
+        v[j] = i < w ? __ldg(xr + i) : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        if (i0 + j * kThreads >= w) continue;
+        const uint32_t b = ordered_bits(v[j]);
+        bits[i0 + j * kThreads] = b;
+        atomicAdd(hist + (b >> 24), 1);
+      }
+    }
+  }
+}
+
+// Warp 0 of a radix block: the digit whose bin holds the rank-th key
+// (1-based) of the histogram summed over the block's warps; writes the
+// digit, the rank within its bin and the bin's count to out[0..2].
+template <int kWarps>
+__device__ __forceinline__ void radix_find(int (*hist)[kRadixBins], int rank, int lane, int* out) {
+  constexpr int kPer = kRadixBins / 32;
+  int c[kPer], sum = 0;
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    c[j] = 0;
+#pragma unroll
+    for (int wp = 0; wp < kWarps; ++wp) c[j] += hist[wp][lane * kPer + j];
+    sum += c[j];
+  }
+  int incl = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += t;
+  }
+  int below = incl - sum;
+  if (below < rank && rank <= incl) {
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      if (below < rank && rank <= below + c[j]) {
+        out[0] = lane * kPer + j;
+        out[1] = rank - below;
+        out[2] = c[j];
+      }
+      below += c[j];
+    }
+  }
+}
+
+// One block per row. The row's ordered bits are staged in shared memory;
+// 8-bit digit histograms (one per warp, in shared memory) find the k-th
+// smallest key: four passes over the value bits (the first counted while
+// staging) give its value T, the rank r it needs among the n values equal
+// to T and n; if r < n, passes over the positions of the values equal to
+// T give the r-th smallest position P, digit by digit until the rest of a
+// digit's bin is taken whole (if r = n, every one of them is). Exactly k
+// keys lie at or below (T, P): a pass writes them, in no order, to shared
+// memory, a bitonic sort of kp = 2^ceil(log2 k) keys (padded with kNone)
+// orders them, and the block writes the first k.
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads)
+select_radix_kernel(const float* __restrict__ x, float* __restrict__ vals,
+                    int* __restrict__ pos_out, int w, int k, int kp) {
+  constexpr int kWarps = kThreads / 32;
+  extern __shared__ __align__(16) unsigned long long radix_smem[];
+  __shared__ int hist[kWarps][kRadixBins];
+  __shared__ int found[3];
+  __shared__ int taken;
+  uint32_t* bits = reinterpret_cast<uint32_t*>(radix_smem);
+  unsigned long long* cand = radix_smem + ((w + 3) & ~3) / 2;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long row = blockIdx.x;
   const float* xr = x + (size_t)row * w;
+  for (int i = tid; i < kWarps * kRadixBins; i += kThreads) (&hist[0][0])[i] = 0;
+  if (tid == 0) taken = 0;
+  __syncthreads();
+  stage_row<kThreads>(xr, w, bits, hist[warp]);
+  __syncthreads();
 
-  warp_select::LaneTop4 top;
-  for (int pos = lane; pos < w; pos += 32) {
-    const unsigned long long key =
-        ((unsigned long long)ordered_bits(xr[pos]) << 32) | (unsigned)pos;
-    keys[pos] = key;
-    top.insert(key);
+  // The digits of (T, P), most significant first: four of the value, then
+  // those of the positions below w.
+  uint32_t value = 0, vmask = 0, place = 0, pmask = 0;
+  uint32_t fill = 0xffffffffu;  // the position bits below the last digit found
+  int rank = k, count = w;
+  int pos_bits = 0;
+  while ((1ll << pos_bits) < w) ++pos_bits;
+  const int pos_digits = (pos_bits + 7) / 8;
+  for (int d = 0; d < 4 + pos_digits; ++d) {
+    const bool on_value = d < 4;
+    if (!on_value && rank == count) break;  // every key equal to T is taken (uniform)
+    const int shift = on_value ? 24 - 8 * d : 8 * (pos_digits - 1 - (d - 4));
+    if (d > 0) {  // the top digits were counted while staging
+      for (int i = tid; i < kWarps * kRadixBins; i += kThreads) (&hist[0][0])[i] = 0;
+      __syncthreads();
+      for (int i = tid; i < w; i += kThreads) {
+        const uint32_t b = bits[i];
+        if (on_value ? (b & vmask) == value : b == value && ((uint32_t)i & pmask) == place)
+          atomicAdd(&hist[warp][((on_value ? b : (uint32_t)i) >> shift) & 255u], 1);
+      }
+      __syncthreads();
+    }
+    if (warp == 0) radix_find<kWarps>(hist, rank, lane, found);
+    __syncthreads();
+    const uint32_t digit = (uint32_t)found[0] << shift;
+    if (on_value) {
+      value |= digit;
+      vmask |= 255u << shift;
+    } else {
+      place |= digit;
+      pmask |= 255u << shift;
+      fill = (1u << shift) - 1;
+    }
+    rank = found[1];
+    count = found[2];
   }
-  __syncwarp();
+  const unsigned long long kth = ((unsigned long long)value << 32) | (place | fill);
 
-  const auto key_at = [keys](int pos) { return keys[pos]; };
-  for (int j = 0; j < k; ++j) {
-    const unsigned long long best = warp_select::next_smallest(top, lane, w, key_at);
-    if (lane == 0) {
-      const int pos = (int)(best & 0xffffffffu);
-      vals[row * k + j] = xr[pos];
-      pos_out[row * k + j] = pos;
+  // The k keys at or below kth, by warp-aggregated slots.
+  for (int i0 = 0; i0 < w; i0 += kThreads) {
+    const int i = i0 + tid;
+    const unsigned long long key = i < w ? ((unsigned long long)bits[i] << 32) | (unsigned)i
+                                         : kNone;
+    const bool sel = key <= kth;
+    const unsigned ballot = __ballot_sync(kFull, sel);
+    int base = 0;
+    if (lane == 0 && ballot) base = atomicAdd(&taken, __popc(ballot));
+    base = __shfl_sync(kFull, base, 0);
+    if (sel) cand[base + __popc(ballot & ((1u << lane) - 1))] = key;
+  }
+  for (int i = k + tid; i < kp; i += kThreads) cand[i] = kNone;
+  __syncthreads();
+
+  // Bitonic sort of the kp keys, ascending.
+  for (int size = 2; size <= kp; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = tid; t < kp / 2; t += kThreads) {
+        const int lo = 2 * t - (t & (stride - 1));
+        const unsigned long long a = cand[lo], b = cand[lo + stride];
+        if ((a > b) == ((lo & size) == 0)) {
+          cand[lo] = b;
+          cand[lo + stride] = a;
+        }
+      }
+      __syncthreads();
     }
   }
-}
-
-constexpr int kWideChunk = 2048;
-
-// Stage 1 of the wide mode: the k smallest keys of each kWideChunk-column
-// chunk of each row, kNone past the chunk's width.
-__global__ void chunk_min_k_kernel(const float* __restrict__ x,
-                                   unsigned long long* __restrict__ cand,
-                                   int num_rows, int w, int nchunks, int k) {
-  extern __shared__ unsigned long long smem_keys[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long item = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
-  if (item >= (long long)num_rows * nchunks) return;  // no block-wide barrier below
-  const long long row = item / nchunks;
-  const int c0 = (int)(item % nchunks) * kWideChunk;
-  const int cw = min(kWideChunk, w - c0);
-  unsigned long long* keys = smem_keys + (size_t)warp * kWideChunk;
-  const float* xr = x + (size_t)row * w + c0;
-
-  warp_select::LaneTop4 top;
-  for (int i = lane; i < cw; i += 32) {
-    const unsigned long long key =
-        ((unsigned long long)ordered_bits(xr[i]) << 32) | (unsigned)(c0 + i);
-    keys[i] = key;
-    top.insert(key);
-  }
-  __syncwarp();
-
-  const auto key_at = [keys](int i) { return keys[i]; };
-  unsigned long long* out = cand + (size_t)item * k;
-  for (int j = 0; j < k; ++j) {  // j < cw is the same on every lane
-    const unsigned long long best =
-        j < cw ? warp_select::next_smallest(top, lane, cw, key_at) : warp_select::kNone;
-    if (lane == 0) out[j] = best;
+  for (int i = tid; i < k; i += kThreads) {
+    const unsigned long long key = cand[i];
+    vals[row * k + i] = key_value(key, xr);
+    pos_out[row * k + i] = (int)(unsigned)key;
   }
 }
 
-// Stage 2: the k smallest of a row's ncand chunk winners; the values are
-// read back from x at the winning positions.
-__global__ void merge_min_k_kernel(const float* __restrict__ x,
-                                   const unsigned long long* __restrict__ cand,
-                                   float* __restrict__ vals, int* __restrict__ pos_out,
-                                   int num_rows, int w, int ncand, int k) {
-  extern __shared__ unsigned long long smem_keys[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
-  if (row >= num_rows) return;
-  unsigned long long* keys = smem_keys + (size_t)warp * ncand;
-  const unsigned long long* cr = cand + (size_t)row * ncand;
-
-  warp_select::LaneTop4 top;
-  for (int i = lane; i < ncand; i += 32) {
-    const unsigned long long key = cr[i];
-    keys[i] = key;
-    top.insert(key);
+// Raise select_radix_kernel<kThreads>'s dynamic shared memory limit to
+// smem (once per size).
+template <int kThreads>
+int radix_allow(int smem) {
+  static int attr_bytes = 0;  // the limit already set
+  if (smem > attr_bytes) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        select_radix_kernel<kThreads>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    attr_bytes = smem;
   }
-  __syncwarp();
-
-  const auto key_at = [keys](int i) { return keys[i]; };
-  for (int j = 0; j < k; ++j) {
-    const unsigned long long best = warp_select::next_smallest(top, lane, ncand, key_at);
-    if (lane == 0) {
-      const int pos = (int)(best & 0xffffffffu);
-      vals[row * k + j] = x[(size_t)row * w + pos];
-      pos_out[row * k + j] = pos;
-    }
-  }
+  return 0;
 }
 
-// Warps per block for per-warp shared memory of `bytes` (at most 8).
-int warps_for(long long bytes) {
-  int warps = 8;
-  while (warps > 1 && warps * bytes > kMaxSmem) --warps;
-  return warps;
+// Threads of select_radix_kernel<kThreads> that one SM holds at once.
+template <int kThreads>
+int radix_resident(int smem) {
+  int blocks = 0;
+  if (radix_allow<kThreads>(smem) != 0 ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, select_radix_kernel<kThreads>,
+                                                    kThreads, smem) != cudaSuccess)
+    return 0;
+  return blocks * kThreads;
+}
+
+template <int kThreads>
+int launch_radix(const float* x, float* vals, int* pos, int num_rows, int w, int k, int kp,
+                 int smem, cudaStream_t stream) {
+  const int rc = radix_allow<kThreads>(smem);
+  if (rc != 0) return rc;
+  select_radix_kernel<kThreads><<<(unsigned)num_rows, kThreads, smem, stream>>>(x, vals, pos, w,
+                                                                                k, kp);
+  return (int)cudaGetLastError();
 }
 
 constexpr int kFusedMaxW = 192;
@@ -613,60 +773,8 @@ extern "C" int gaussreg_kth_largest_rows_cols(const float* scores, float* row_th
   }
 }
 
-extern "C" int gaussreg_select_min_k_rounds(const float* x, float* vals, int* pos,
-                                            int num_rows, int w, int k, void* stream) {
-  const long long row_bytes = (long long)w * 8;
-  if (num_rows <= 0 || w <= 0 || k <= 0 || k > w || row_bytes > kMaxSmem) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int warps = warps_for(row_bytes);
-  const size_t smem = (size_t)warps * row_bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      select_min_k_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (num_rows + warps - 1) / warps;
-  select_min_k_kernel<<<blocks, warps * 32, smem, (cudaStream_t)stream>>>(
-      x, vals, pos, num_rows, w, k);
-  return (int)cudaGetLastError();
-}
-
-// The wide mode: `cand` is scratch of num_rows * ceil(w / kWideChunk) * k
-// keys. Refuses widths the first entry takes, and k whose chunk winners
-// do not fit in shared memory.
-extern "C" int gaussreg_select_min_k_rounds_wide(const float* x, float* vals, int* pos,
-                                                 unsigned long long* cand, int num_rows,
-                                                 int w, int k, void* stream) {
-  const int nchunks = (w + kWideChunk - 1) / kWideChunk;
-  const long long cand_bytes = (long long)nchunks * k * 8;
-  if (num_rows <= 0 || (long long)w * 8 <= kMaxSmem || k <= 0 || k > w ||
-      cand_bytes > kMaxSmem) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t s = (cudaStream_t)stream;
-  const int warps1 = warps_for((long long)kWideChunk * 8);
-  const size_t smem1 = (size_t)warps1 * kWideChunk * 8;
-  cudaError_t err = cudaFuncSetAttribute(
-      chunk_min_k_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
-  if (err != cudaSuccess) return (int)err;
-  const long long items = (long long)num_rows * nchunks;
-  chunk_min_k_kernel<<<(unsigned)((items + warps1 - 1) / warps1), warps1 * 32, smem1, s>>>(
-      x, cand, num_rows, w, nchunks, k);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int ncand = nchunks * k;
-  const int warps2 = warps_for(cand_bytes);
-  const size_t smem2 = (size_t)warps2 * cand_bytes;
-  err = cudaFuncSetAttribute(merge_min_k_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
-  if (err != cudaSuccess) return (int)err;
-  merge_min_k_kernel<<<(num_rows + warps2 - 1) / warps2, warps2 * 32, smem2, s>>>(
-      x, cand, vals, pos, num_rows, w, ncand, k);
-  return (int)cudaGetLastError();
-}
-
-// The filter entry: k <= 128, any width; `wide` nonzero takes a block of
-// kBlockWarps warps per row, else one warp per row.
+// The filter entry: any 0 < k <= W, any width; `wide` nonzero takes a block
+// of kBlockWarps warps per row (k <= kWideMaxK), else one warp per row.
 //
 // 16-byte loads put four neighbouring columns in one lane. Winners that
 // sit together (a sentinel plateau, points in spatial order) then empty a
@@ -675,12 +783,32 @@ extern "C" int gaussreg_select_min_k_rounds_wide(const float* x, float* vals, in
 extern "C" int gaussreg_select_min_k_filter(const float* x, float* vals, int* pos,
                                             int num_rows, int w, int k, int wide,
                                             void* stream) {
-  if (num_rows <= 0 || w <= 0 || k <= 0 || k > w || k > kFilterMaxK) {
+  if (num_rows <= 0 || w <= 0 || k <= 0 || k > w || (wide && k > kWideMaxK)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
+  const bool wd = wide != 0;
   if (k <= kVecMaxK && (w & 3) == 0 && ((uintptr_t)x & 15) == 0)
-    return launch_filter<4, true>(x, vals, pos, num_rows, w, k, wide != 0, s);
-  if (k <= kSmallQueueMaxK) return launch_filter<4, false>(x, vals, pos, num_rows, w, k, wide != 0, s);
-  return launch_filter<8, false>(x, vals, pos, num_rows, w, k, wide != 0, s);
+    return launch_filter<4, true>(x, vals, pos, num_rows, w, k, wd, s);
+  if (k <= kSmallQueueMaxK) return launch_filter<4, false>(x, vals, pos, num_rows, w, k, wd, s);
+  if (k <= kMidQueueMaxK) return launch_filter<8, false>(x, vals, pos, num_rows, w, k, wd, s);
+  return launch_filter<kLargeQueue, false>(x, vals, pos, num_rows, w, k, wd, s);
+}
+
+// The radix entry: any 0 < k <= W whose row and sorted keys fit in
+// kMaxSmem of shared memory (radix_smem_bytes); one block per row, of 256
+// threads, or of 512 past kRadixWideCols columns where an SM then holds
+// more threads at once (a block's shared memory leaves room for few
+// blocks; where 512 costs a block per SM it lost: tools/select_variants.py).
+extern "C" int gaussreg_select_min_k_radix(const float* x, float* vals, int* pos, int num_rows,
+                                           int w, int k, void* stream) {
+  if (num_rows <= 0 || w <= 0 || k <= 0 || k > w) return (int)cudaErrorInvalidValue;
+  int kp = 1;
+  while (kp < k) kp <<= 1;
+  const long long smem = radix_smem_bytes(w, kp);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (w > kRadixWideCols && radix_resident<512>((int)smem) > radix_resident<256>((int)smem))
+    return launch_radix<512>(x, vals, pos, num_rows, w, k, kp, (int)smem, s);
+  return launch_radix<256>(x, vals, pos, num_rows, w, k, kp, (int)smem, s);
 }

@@ -1,5 +1,5 @@
-// Warp-wide selection of the smallest unique 64-bit keys, shared by
-// window_select.cu (K1) and select_k.cu (K3).
+// Warp-wide selection of the smallest unique 64-bit keys, used by
+// window_select.cu (K1).
 //
 // Each lane owns the keys at positions lane, lane + 32, ... of its row and
 // keeps the four smallest of them sorted in registers. A selection round

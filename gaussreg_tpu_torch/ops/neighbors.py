@@ -2,9 +2,9 @@
 
 Brute force (`radius_search`, `knn_search`): blockwise gram-form
 distances |q|^2 - 2 q.s + |s|^2 and the k smallest per query row through
-`select_min_k` (the CUDA kernel K3 on CUDA tensors: for k <= 128 its
-threshold filter, one warp per row, or one block per row for a block of
-1 024 queries against 8 192 support points or more at k <= 48; the plain
+`select_min_k` (the CUDA kernel K3 on CUDA tensors: its threshold
+filter for any k <= N, one warp per row, or one block per row for a block
+of 1 024 queries against 8 192 support points or more at k <= 48; the plain
 stable sort on CPU tensors), whose tie order (ties to the smaller index)
 is lax.top_k's.
 

@@ -135,9 +135,9 @@ def select_rows(w, k, cuda, seed):
     """Rows that exercise every part of K3's routes: random values with
     ties, zeros of both signs, the radius search's 1e12 sentinel plateau
     with fewer than k real values, equal values on both sides of each warp
-    slice's border of the wide filter route (and of each 2048-column chunk
-    of the rounds' wide mode), and descending rows (every key enters a
-    lane's queue; lanes run dry and re-read their share)."""
+    slice's border of the wide filter route, and descending rows (every key
+    enters a lane's queue; lanes run dry and are refilled, past k = 128
+    from shorter refill queues that can run dry first)."""
     from gaussreg_tpu_torch.ops import select_k as sk
 
     gen = torch.Generator(device=cuda).manual_seed(seed)
@@ -153,7 +153,6 @@ def select_rows(w, k, cuda, seed):
     scale = w // units
     wpr = sk.FILTER_WIDE_WARPS  # the wide filter's slices
     borders = {(units // wpr * part + min(part, units % wpr)) * scale for part in range(1, wpr)}
-    borders |= set(range(sk.WIDE_CHUNK, w, sk.WIDE_CHUNK))
     for b in sorted(borders):  # equal values astride each border
         if 0 < b < w:
             x[4:6, b - 1] = -2.0
@@ -163,8 +162,8 @@ def select_rows(w, k, cuda, seed):
     return x
 
 
-ROUTE_WIDTHS = [16, 128, 2304, 25_600, 25_601, 30_720]
-ROUTE_KS = [1, 3, 35, 89, 128, 129, 700]
+ROUTE_WIDTHS = [16, 128, 2304, 25_600, 25_601, 30_720, 65_536]
+ROUTE_KS = [1, 3, 35, 89, 128, 129, 700, 1706, 2048]
 
 
 @pytest.mark.parametrize("w,k", [(w, k) for w in ROUTE_WIDTHS for k in ROUTE_KS if k <= w])
@@ -186,12 +185,15 @@ def test_select_min_k_routes_match_plain(cuda, w, k):
 
 
 @pytest.mark.parametrize("wide", [False, True])
-@pytest.mark.parametrize("w,k", [(2304, 35), (30_720, 35), (999, 89), (8192, 128), (4096, 3)])
+@pytest.mark.parametrize("w,k", [(2304, 35), (30_720, 35), (999, 89), (8192, 128), (4096, 3),
+                                 (2304, 700), (30_720, 2048), (7000, 6400)])
 def test_select_min_k_filter_both_forms_any_width(cuda, wide, w, k):
     """The filter entry in both its forms (one warp per row, and one block
     of FILTER_WIDE_WARPS = 4 warps per row) at widths on either side of
-    FILTER_WIDE_MIN_WIDTH, whichever the route would take, bit for bit,
-    unaligned rows (a view one column in) included."""
+    FILTER_WIDE_MIN_WIDTH and k up to the wide form's list limit
+    (FILTER_WIDE_LIST_MAX_K = 6 400: 200 KiB of shared memory), whichever
+    the route would take, bit for bit, unaligned rows (a view one column
+    in) included."""
     from gaussreg_tpu_torch.ops import select_k as sk
 
     x = select_rows(w + 1, k, cuda, int(wide))[:, 1:].contiguous()
@@ -203,6 +205,34 @@ def test_select_min_k_filter_both_forms_any_width(cuda, wide, w, k):
         torch.cuda.synchronize()
         assert torch.equal(pos, pp)
         assert torch.equal(vals.view(torch.int32), vp.view(torch.int32))
+
+
+@pytest.mark.parametrize("w,k", [(1, 1), (7, 7), (257, 1), (257, 257), (2304, 700),
+                                 (30_720, 2048), (30_720, 8192), (49_000, 600)])
+def test_select_min_k_radix_any_shape(cuda, w, k):
+    """K3's radix entry (digit histograms to the k-th key, then a bitonic
+    sort of the k keys at or below it), whatever route select_min_k would
+    take, bit for bit against the plain stable sort: k = 1 and k = W, a
+    width past 256 (two position digits), k up to 8 192 and a row near the
+    200 KiB of shared memory; rows of ties, +-0.0, sentinel plateaus and
+    descending values (every tie broken by position digits)."""
+    from gaussreg_tpu_torch.ops import select_k as sk
+
+    x = select_rows(w, k, cuda, w + k)
+    assert sk.radix_fits(w, k)
+    vals = torch.empty((40, k), device=cuda)
+    pos = torch.empty((40, k), device=cuda, dtype=torch.int32)
+    before = sk.RADIX_KERNEL.launches
+    sk.RADIX_KERNEL.launch(x.data_ptr(), vals.data_ptr(), pos.data_ptr(), 40, w, k)
+    vp, pp = sk.select_min_k_plain(x, k)
+    torch.cuda.synchronize()
+    assert sk.RADIX_KERNEL.launches == before + 1
+    assert torch.equal(pos, pp), (pos != pp).nonzero()[:5].tolist()
+    assert torch.equal(vals.view(torch.int32), vp.view(torch.int32))
+    if w == 49_000:  # a wider row does not fit: refused, not launched
+        assert not sk.radix_fits(52_000, k)
+        with pytest.raises(RuntimeError):
+            sk.RADIX_KERNEL.launch(x.data_ptr(), vals.data_ptr(), pos.data_ptr(), 1, 52_000, k)
 
 
 def test_wrappers_reject_bad_input(cuda):
@@ -708,14 +738,11 @@ def test_probe_composite_cores_match_plain(cuda, case):
 def test_select_min_k_wide_mode_matches_plain(cuda, w, k):
     """K3 on wide rows against the plain stable sort, bit for bit: the
     filter's wide route (one block of FILTER_WIDE_WARPS warps per row) for
-    k <= FILTER_WIDE_MAX_K, its narrow route (one warp per row) up to
-    k = 128, the rounds' wide mode (the k smallest of each 2048-column
-    chunk, then of the chunk winners) for k = 700 past 25 600 columns; at
-    the level-0
-    brute-force width 30 720 at make_cfg()'s and the reference's level-0
-    limits, and k past the last chunk's width (26 000 = 12 chunks and 1 424
-    columns). Rows of ties (+-0.0), of the radius search's sentinel
-    plateau, and ties across chunks and slices."""
+    k <= FILTER_WIDE_MAX_K, its narrow route (one warp per row) past it,
+    the radix route at k = 700; at the level-0 brute-force width 30 720 at
+    make_cfg()'s and the reference's level-0 limits, and k = 700 past
+    25 600 columns. Rows of ties (+-0.0), of the radius search's sentinel
+    plateau, and equal values far apart."""
     from gaussreg_tpu_torch.ops import select_k as sk
 
     gen = torch.Generator(device=cuda).manual_seed(w + k)
@@ -725,8 +752,8 @@ def test_select_min_k_wide_mode_matches_plain(cuda, w, k):
     x[3:6, : w - 50] = 1e12  # mostly sentinel, the few real ones at the end
     x[6, 5] = x[6, 4097] = x[6, w - 1] = -1.0  # one value in three chunks
     name = sk.route(w, k, x.shape[0])
-    assert name == ("select_min_k_wide" if k <= sk.FILTER_WIDE_MAX_K else
-                    "select_min_k" if k <= sk.FILTER_MAX_K else "select_min_k_rounds_wide")
+    assert name == ("select_min_k_radix" if k >= sk.RADIX_ANY_WIDTH_K else
+                    "select_min_k_wide" if k <= sk.FILTER_WIDE_MAX_K else "select_min_k")
     before = sk.ROUTES[name].launches
     vk, pk = sk.select_min_k(x, k)
     vp, pp = sk.select_min_k_plain(x, k)
@@ -737,10 +764,42 @@ def test_select_min_k_wide_mode_matches_plain(cuda, w, k):
 
 
 def test_select_min_k_wide_mode_limits(cuda):
+    """k = 2 000 on 30 720 columns, past the 200 KiB of chunk winners that
+    the card once refused: answered, bit for bit against the plain stable
+    sort, on a row of zeros of both signs and a row of ties."""
     from gaussreg_tpu_torch.ops import select_k as sk
 
-    with pytest.raises(ValueError, match="wide mode"):
-        sk.select_min_k(torch.zeros(2, 30_720, device=cuda), 2000)
+    x = torch.zeros(2, 30_720, device=cuda)
+    x[0, ::2] = -0.0
+    x[1] = torch.arange(30_720, device=cuda).remainder(7).float()
+    vk, pk = sk.select_min_k(x, 2000)
+    vp, pp = sk.select_min_k_plain(x, 2000)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, pp)
+    assert torch.equal(vk.view(torch.int32), vp.view(torch.int32))
+
+
+def test_knn_search_past_the_old_limit_matches_plain(cuda, monkeypatch):
+    """knn_search at k = 2 048 on 30 720 points (30 blocks of (1 024, 30 720)
+    distance rows, which the card refused before the filter took every k)
+    against the same search with K3's plain version on the card: the same
+    distances, so equal index for index and value for value."""
+    from gaussreg_tpu_torch.ops import neighbors as nb
+    from gaussreg_tpu_torch.ops import select_k as sk
+
+    rng = np.random.default_rng(7)
+    s = torch.from_numpy(rng.uniform(0, 2.0, size=(30_720, 3)).astype(np.float32)).to(cuda)
+    m = torch.ones(s.shape[0], dtype=torch.bool, device=cuda)
+    m[-100:] = False
+    route = sk.ROUTES[sk.route(30_720, 2048, 1024)]
+    before = route.launches
+    idx, d2 = nb.knn_search(s, s, m, m, 2048)
+    torch.cuda.synchronize()
+    assert route.launches - before == 30
+    monkeypatch.setattr(nb, "select_min_k", sk.select_min_k_plain)
+    idx_p, d2_p = nb.knn_search(s, s, m, m, 2048)
+    assert torch.equal(idx, idx_p)
+    assert torch.equal(d2.view(torch.int32), d2_p.view(torch.int32))
 
 
 def test_radius_search_wide_rows_matches_plain(cuda):

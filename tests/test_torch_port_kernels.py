@@ -100,6 +100,26 @@ def test_select_min_k_plain_matches_pallas(k):
     np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
 
 
+@pytest.mark.parametrize("k", [129, 300])
+def test_select_min_k_plain_matches_pallas_past_128(k):
+    """k past 128, where the Pallas kernel pads its outputs to 256 and 384
+    lanes, on rows of many ties, zeros of both signs and a descending row:
+    index for index and value for value."""
+    from gaussreg_tpu.ops.select_k import select_min_k as jax_select
+    from gaussreg_tpu_torch.ops.select_k import select_min_k_plain
+
+    rng = np.random.default_rng(k)
+    x = (rng.integers(0, 64, size=(16, 384)) / 8.0 - 4.0).astype(np.float32)
+    x[0] = 0.0
+    x[0, ::2] = -0.0
+    x[1, ::3] = -0.0
+    x[2] = np.arange(384, 0, -1)
+    vj, pj = jax_select(jnp.asarray(x), k, block_rows=8, interpret=True)
+    vt, pt = select_min_k_plain(torch.from_numpy(x), k)
+    np.testing.assert_array_equal(pt.numpy(), np.asarray(pj))
+    np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+
+
 def test_select_min_k_any_width():
     """The port takes widths that are not multiples of 128 (the tiny
     configuration's patches are 16 wide)."""

@@ -1,16 +1,17 @@
 """K3's route table and P1's cluster capacity, on the CPU.
 
 `select_k.route(w, k, rows)` names the kernel that `select_min_k` launches
-for a CUDA tensor, before the launch: the threshold filter up to k = 128
-(one block per row for few long rows: k <= 48 and W >= 8 192 columns per
-1 024 rows, at least 8 192; one warp per row otherwise), the selection
-rounds past it (their wide mode past 25 600 columns, while the chunk
-winners fit in shared memory). On a CPU tensor every shape takes the
-plain stable sort and launches nothing. P1's `shared` variant stages the
-table across a cluster of 8 blocks: `check_shared_capacity` takes the
-largest table that fits and refuses one row more. The kernels themselves
-are held against these plain versions in tests/test_torch_port_cuda.py on
-the card.
+for a CUDA tensor, before the launch, for every 0 < k <= W: the radix
+select where its block's shared memory holds the row and its keys and
+k >= 700, or k >= 256 on rows of at most 12 288 columns; else the
+threshold filter, one block per row for few long rows (k <= 48 and
+W >= 8 192 columns per 1 024 rows, at least 8 192), one warp per row
+otherwise. It refuses only k outside (0, W]. On a CPU tensor every shape
+takes the plain stable sort and launches nothing. P1's `shared` variant
+stages the table across a cluster of 8 blocks: `check_shared_capacity`
+takes the largest table that fits and refuses one row more. The kernels
+themselves are held against these plain versions in
+tests/test_torch_port_cuda.py on the card.
 """
 
 import pytest
@@ -41,13 +42,30 @@ ROUTE_CASES = [
     (30_720, 35, 61_440, "select_min_k"),
     (30_720, 89, 1024, "select_min_k"),
     (30_720, 128, 1, "select_min_k"),
-    (129, 129, 40, "select_min_k_rounds"),
-    (WIDE_W, 129, 1, "select_min_k_rounds"),
-    (25_600, 129, 1024, "select_min_k_rounds"),
-    (25_600, 700, 40, "select_min_k_rounds"),
-    (25_601, 129, 1024, "select_min_k_rounds_wide"),
-    (30_720, 700, 40, "select_min_k_rounds_wide"),
-    (30_720, 1706, 1, "select_min_k_rounds_wide"),  # 15 chunks x 1706 x 8 B: 204 720 B
+    (129, 129, 40, "select_min_k"),
+    (WIDE_W, 129, 1, "select_min_k"),
+    (25_600, 129, 1024, "select_min_k"),
+    (25_600, 700, 40, "select_min_k_radix"),
+    (25_601, 129, 1024, "select_min_k"),
+    (30_720, 700, 40, "select_min_k_radix"),
+    (30_720, 1706, 1, "select_min_k_radix"),
+    # shapes the card refused before the filter took every k (the chunk
+    # winners of the rounds' wide mode past 200 KiB of shared memory)
+    (30_720, 1707, 1, "select_min_k_radix"),
+    (200_000, 262, 1, "select_min_k"),
+    (30_720, 2048, 1024, "select_min_k_radix"),  # knn_search's blocks on 30 720 points
+    (100_000, 600, 1024, "select_min_k"),  # and on 100 000
+    # the radix select's bounds: k, width, its shared memory
+    (2304, 255, 61_440, "select_min_k"),
+    (2304, 256, 61_440, "select_min_k_radix"),
+    (sk.RADIX_MAX_WIDTH, 256, 1, "select_min_k_radix"),
+    (sk.RADIX_MAX_WIDTH + 1, 256, 1, "select_min_k"),
+    (sk.RADIX_MAX_WIDTH + 1, 699, 1, "select_min_k"),
+    (sk.RADIX_MAX_WIDTH + 1, 700, 1, "select_min_k_radix"),
+    (49_000, 700, 1, "select_min_k_radix"),  # 196 000 + 8 192 bytes
+    (52_000, 700, 1, "select_min_k"),  # 208 000 + 8 192
+    (30_720, 8192, 1, "select_min_k_radix"),
+    (30_720, 8193, 1, "select_min_k"),  # 16 384 keys
 ]
 
 
@@ -57,10 +75,9 @@ def test_select_route_boundaries(w, k, rows, name):
     assert name in sk.ROUTES
 
 
-@pytest.mark.parametrize("w,k", [(16, 0), (16, 17), (30_720, 1707), (200_000, 262)])
+@pytest.mark.parametrize("w,k", [(16, 0), (16, 17)])
 def test_select_route_refuses(w, k):
-    """k outside (0, W], and the rounds' wide mode past 200 KiB of chunk
-    winners (30 720 columns: 15 chunks x 1707 x 8 B; 200 000: 98 x 262)."""
+    """k outside (0, W]: nothing else is refused."""
     with pytest.raises(ValueError):
         sk.route(w, k, 1)
 
