@@ -96,6 +96,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    held by launch latency, beside torch.index_select's; `kernel2`'s twin
    (the table staged across a cluster of 8 blocks) is printed beside
    `kernel3`'s (a direct gather): the difference is the staging's cost.
+   P2's bound is the largest of its f32 operations, its transcendentals
+   at the special-function unit's rate and its bytes (`p2.bound`).
 10. CLIs: `python -m gaussreg_tpu_torch.tools.demo` on phase 3's .ply pair
    with the trained checkpoint (RRE < 5 degrees), again with
    --torch_snapshot on a saved fake reference state dict, and
@@ -1003,21 +1005,20 @@ def write_scene_plys(directory, cfg, seed):
 
 # P2's limits against its plain version on the card: kernel and plain
 # version compute the same alpha (the exponent's products and sums rounded
-# alike, the accurate exp and log1p) and differ by the order of the prefix
-# and colour sums: 1e-5; B's bf16 rounding of lg may land on the other
-# neighbour where the two log1p differ in the last bit: 5e-4 (one bf16 step
-# of one lg moves its pixel's later weights by up to 2^-8 |lg|). Should exp
-# differ in the last bit, a raw within an ulp of 1/255 flips its pair and
-# moves a pixel by up to 1/255 of a colour: at most MAX_FLIPPED_PIXELS such
-# pixels, none past 4e-3. Against core A (as the JAX probe prints it): C and
-# D within 1e-4 (another rounding of the same prefix), B within 1e-2 (bf16
-# keeps 8 bits of each lg: the prefix is off by up to 2^-9 of sum |lg|, and
-# the colour by that share of itself, |ln T| <= ~6 here).
+# alike, alpha's accurate exp, the accurate log1p) and differ by the order
+# of the prefix and colour sums and by the kernel's transmittance exp
+# (ex2.approx, a few ulp of T): 1e-5; B's bf16 rounding of lg may land on
+# the other neighbour where the two log1p differ in the last bit: 5e-4 (one
+# bf16 step of one lg moves its pixel's later weights by up to 2^-8 |lg|).
+# Should exp differ in the last bit, a raw within an ulp of 1/255 flips its
+# pair and moves a pixel by up to 1/255 of a colour: at most
+# MAX_FLIPPED_PIXELS such pixels, none past 4e-3. Against core A (as the JAX
+# probe prints it): C and D within 1e-4 (another rounding of the same
+# prefix), B within 1e-2 (bf16 keeps 8 bits of each lg: the prefix is off by
+# up to 2^-9 of sum |lg|, and the colour by that share of itself, |ln T| <=
+# ~6 here).
 P2_LIMITS = {"A": 1e-5, "B": 5e-4, "C": 1e-5, "D": 1e-5}
 P2_AGAINST_A = {"B": 1e-2, "C": 1e-4, "D": 1e-4}
-# H100 SXM: 16 special-function results per SM and clock (the CUDA
-# programming guide's throughput table, compute capability 9.0)
-MUFU_PER_SM_CLOCK = 16
 
 
 def compare_cores(out, ref, core):
@@ -1039,17 +1040,6 @@ def compare_cores(out, ref, core):
     return worst
 
 
-def walked_blocks(starts, kend, nblk):
-    """Distinct blocks the tiles walked: tile t reads blocks
-    starts[t] // 128 .. + kend[t] - 1."""
-    import torch
-
-    first = starts[:-1].long().clamp_max(nblk * 128) // 128
-    span = torch.arange(int(kend.max()) if kend.numel() else 0, device=kend.device)
-    ids = first[:, None] + span[None]
-    return int(torch.unique(ids[span[None] < kend.long()[:, None]]).numel())
-
-
 def probe_phase(dev, kernels):
     """9. The two TPU probes' twins at the probes' shapes: P1 (G=4096, K=128,
     C=8; `onehot` is a direct two-lanes-per-row gather since the card's
@@ -1059,9 +1049,10 @@ def probe_phase(dev, kernels):
     its plain version (P1 bit for bit, and equal to table[idx]; P2 by
     compare_cores, and B-D against A), timed by a slope over graph-replayed
     launches with inputs perturbed per repetition (P1 beside
-    torch.index_select), and bounded. For P2 also the special-function
-    unit's pace: the time the call's transcendentals need at 16 per SM and
-    clock, at the card's clock, beside the kernel's time."""
+    torch.index_select), and bounded. P2's bound (`p2.bound`) is the largest
+    of the f32 operations at their peak, the transcendentals at
+    p2.MUFU_PER_SM_CLOCK results per SM and clock at the card's clock, and
+    the bytes; the line names the one that sets it and prints all three."""
     import torch
     from gaussreg_tpu_torch.ops import _cuda
     from gaussreg_tpu_torch.tools import probe_kernels_r5 as p2
@@ -1114,11 +1105,13 @@ def probe_phase(dev, kernels):
         f"and torch.index_select {t_lib:.5f} ms: the staging's share {staging:.5f} ms")
 
     # P2
-    clock_mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True).stdout.split()[0])
+    mismatches = p2.log1p_mismatches(dev)
+    log(f"probe_composite: the kernels' branch-free log1p against log1pf at every f32 alpha "
+        f"in [0, 0.99]: {mismatches} differ")
+    if mismatches:
+        raise AssertionError("probe_composite: the kernels' log1p differs from log1pf")
+    clock_mhz = p2.sm_clock_mhz()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    mufu_rate = MUFU_PER_SM_CLOCK * sms * clock_mhz * 1e6
     copies = p2.perturbed(blocks, 16)
     for c in p2.CORES:
         out = composited[c]
@@ -1130,25 +1123,26 @@ def probe_phase(dev, kernels):
         t_p = cuda_ms(lambda c=c: p2.composite_plain(blocks, starts, c, tiles), reps=2)
         kend = out[:, 5, 0]
         pp = p2.pair_pixels(out, starts)
-        nbytes = (walked_blocks(starts, kend, blocks.shape[0]) * p2.NCHAN * p2.CHUNK * 4
-                  + starts.numel() * 4 + out.numel() * 4)
-        b_ms, b_by = bound(nbytes, pp * p2.OPS_PER_PAIR_PIXEL[c], "f32")
-        sfu_ms = pp * p2.TRANSCENDENTALS_PER_PAIR_PIXEL[c] / mufu_rate * 1e3
+        b_ms, b_of, parts = p2.bound(out, starts, blocks.shape[0], c, sms, clock_mhz)
         log(f"probe_composite_{c}: kend mean {kend.mean().item():.2f} ({int(kend.sum())} chunks "
             f"walked, {int((kend < blocks.shape[0] // tiles).sum())} tiles left early), "
             f"err vs plain {err:.3e}, "
-            f"vs A {vs_a:.3e}; kernel {t_k:.4f} ms ({t_k * 1e6 / blocks.shape[0]:.0f} ns/blk), "
-            f"plain {t_p:.3f} ms, bound {b_ms:.4f} ms ({b_by}; {pp / 1e6:.1f} M pair-pixels x "
-            f"{p2.OPS_PER_PAIR_PIXEL[c]:.0f}, {nbytes / 1e6:.1f} MB); "
-            f"{p2.TRANSCENDENTALS_PER_PAIR_PIXEL[c]} transcendentals per pair-pixel, "
-            f"{sfu_ms:.4f} ms at one MUFU op each ({MUFU_PER_SM_CLOCK} per SM and clock, "
-            f"{sms} SMs at {clock_mhz:.0f} MHz), {100 * sfu_ms / t_k:.1f}% of the kernel's time")
+            f"vs A {vs_a:.3e}; kernel {t_k:.4f} ms ({t_k * 1e6 / blocks.shape[0]:.0f} ns/blk, "
+            f"a cluster of {p2.CLUSTER} blocks per tile), plain {t_p:.3f} ms, bound {b_ms:.4f} ms "
+            f"by {b_of} ({pp / 1e6:.1f} M pair-pixels: x {p2.OPS_PER_PAIR_PIXEL[c]:.0f} f32 "
+            f"operations {parts['f32 operations']:.4f} ms; x "
+            f"{p2.TRANSCENDENTALS_PER_PAIR_PIXEL[c]} transcendentals at "
+            f"{p2.MUFU_PER_SM_CLOCK} MUFU results per SM and clock, {sms} SMs at "
+            f"{clock_mhz:.0f} MHz, {parts['transcendentals']:.4f} ms; bytes "
+            f"{parts['bytes']:.4f} ms), {100 * b_ms / t_k:.1f}% of the bound")
         kernels.append({
             "name": f"probe_composite_{c}", "route": "cuda",
             "source": "gaussreg_tpu_torch/csrc/probe_composite.cu",
             "replaces": "tools/probe_kernels_r5.py:189",
             "launches": counts[f"probe_composite_{c}"], "max_abs_err": err,
-            "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms,
+            "bound_by": "bytes" if b_of == "bytes" else "operations", "bound_of": b_of,
+            "library_ms": None,
         })
     del copies
 

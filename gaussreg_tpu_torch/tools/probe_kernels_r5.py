@@ -2,6 +2,7 @@
 interchangeable math cores (port of tools/probe_kernels_r5.py).
 
     python -m gaussreg_tpu_torch.tools.probe_kernels_r5 [--tiles 300] [--blocks 7]
+        [--source copy.cu ...]
 
 One launch per core (csrc/probe_composite.cu, one kernel template per core)
 walks each 32x32 tile's 128-pair chunks of channel-major blocks
@@ -9,22 +10,36 @@ walks each 32x32 tile's 128-pair chunks of channel-major blocks
 transmittance, exiting tile-wide once T < 1e-4 after a chunk:
 
   A  log-space prefix: lg = log1p(-alpha), a running f32 sum per pixel
-  B  the prefix of bf16-rounded lg on mma.sync tensor cores (f32 sums)
-  C  lg split into bf16 hi and lo, two tensor-core prefixes, f32 sums
+  B  the prefix of bf16-rounded lg, summed in f32
+  C  lg split into bf16 hi and lo, two prefixes summed in f32
   D  linear space: the running product of (1 - alpha), no log, no 2nd exp
+
+The kernel composites each tile with a cluster of CLUSTER blocks (the
+source's kCluster) that agree on the tile's exit through distributed
+shared memory.
 
 `run_fwd` takes the probe's arguments; for CPU tensors it runs
 `composite_plain`, the plain PyTorch version (vectorised over tiles, the
 prefix as the JAX core takes it: a triangular product for B and C). main()
-prints per core kend's mean, the max difference from A, and the time per
-call and per block, a slope over graph-replayed launches with inputs
-perturbed per repetition (`utils.timing.slope`, the probe's timer).
+prints per core kend's mean, the max difference from the plain version and
+from A, the time per call (a slope over graph-replayed launches with inputs
+perturbed per repetition, `utils.timing.slope`, the probe's timer) beside
+its bound and the special-function unit's time; then the cluster sweep
+(copies of the source with 1 and 4 blocks a tile, `cluster_copy`) and each
+--source copy: each copy's cores timed beside the shipped build, their
+bits compared with the shipped build's. The last line is all of it as
+JSON.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import json
+import os
+import re
+import subprocess
+import tempfile
 
 import numpy as np
 import torch
@@ -39,29 +54,44 @@ ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
 IMAGE_WIDTH = 640
 CORES = ("A", "B", "C", "D")
+# blocks per tile's cluster: csrc/probe_composite.cu's kCluster; main()
+# times copies with the others of the sweep
+CLUSTER = 2
+CLUSTER_SWEEP = (1, 4)
 
+_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int]
 KERNELS = {
     core: _cuda.register(
         f"probe_composite_{core}",
-        _cuda.CudaKernel(
-            "probe_composite.cu", f"gaussreg_probe_composite_{core.lower()}",
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int],
-        ),
+        _cuda.CudaKernel("probe_composite.cu", f"gaussreg_probe_composite_{core.lower()}", _ARGS),
     )
     for core in CORES
 }
+# counts the f32 alpha in [0, 0.99] at which the kernels' branch-free log1p
+# differs from the library's log1pf (not registered: no core's launch)
+LOG1P_CHECK = _cuda.CudaKernel("probe_composite.cu", "gaussreg_probe_composite_log1p_check",
+                               [ctypes.c_void_p])
 
-# f32 operations per pair and pixel, counted from csrc/probe_composite.cu:
-# the exponent 10 (5 products, 5 sums), min 1, exp 1, cut and cap 2, row
-# mask 1, four colour multiply-adds 8 -> 23 in every core; then
-# A: log1p, prefix sum, exp, T x, alpha x -> 28; B: log1p, bf16 rounding,
-# exp, T x, alpha x (the prefix on tensor cores) -> 28; C: log1p, hi, lo
-# (difference and rounding), cum_hi + cum_lo, exp, T x, alpha x -> 31;
-# D: 1 - alpha, the product, the difference, T x -> 27.
+# f32 operations per pair and pixel, counted from the function (the JAX
+# probe's math), whatever a kernel executes: the exponent 10 (5 products,
+# 5 sums), min 1, exp 1, cut and cap 2, row mask 1, four colour
+# multiply-adds 8 -> 23 in every core; then A: log1p, prefix sum, exp, T x,
+# alpha x -> 28; B: log1p, bf16 rounding, exp, T x, alpha x (the prefix's
+# sum) -> 28; C: log1p, hi, lo (difference and rounding), cum_hi + cum_lo,
+# exp, T x, alpha x -> 31; D: 1 - alpha, the product, the difference,
+# T x -> 27.
 OPS_PER_PAIR_PIXEL = {"A": 28.0, "B": 28.0, "C": 31.0, "D": 27.0}
-# exp, log1p and exp in A-C; exp in D
-TRANSCENDENTALS_PER_PAIR_PIXEL = {"A": 3, "B": 3, "C": 3, "D": 1}
+# the transcendentals that need the special-function unit: alpha's exp and
+# the transmittance's exp in A-C, alpha's exp in D (log1p is a polynomial
+# on the FMA pipe, counted above as an f32 operation)
+TRANSCENDENTALS_PER_PAIR_PIXEL = {"A": 2, "B": 2, "C": 2, "D": 1}
+# H100 SXM: the data sheet's f32 peak (outside the tensor cores) and memory
+# rate; 16 special-function (MUFU) results per SM and clock (the CUDA
+# programming guide's throughput table, compute capability 9.0)
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+MUFU_PER_SM_CLOCK = 16
 
 
 def make_blocks(num_tiles: int = 300, blocks_per_tile: int = 7, seed: int = 0):
@@ -173,11 +203,14 @@ def composite_plain(pair_blocks: torch.Tensor, starts: torch.Tensor, variant: st
 
 
 def run_fwd(pair_blocks: torch.Tensor, starts: torch.Tensor, variant: str, num_tiles: int,
-            tile_h: int = 32, tile_w: int = 32) -> torch.Tensor:
+            tile_h: int = 32, tile_w: int = 32, *,
+            kernel: _cuda.CudaKernel | None = None) -> torch.Tensor:
     """Composite `num_tiles` 32x32 tiles with core `variant` (A, B, C or D).
 
     pair_blocks: (nblk, 16, 128) f32; starts: (num_tiles + 1,) int32 pair
-    offsets. Returns (num_tiles, 6, 1024) f32: rgb+a (4), T, kend."""
+    offsets. Returns (num_tiles, 6, 1024) f32: rgb+a (4), T, kend. On the
+    card through `kernel` (default: the core's registered kernel; main()
+    and the card tests pass copies' builds)."""
     if variant not in CORES:
         raise ValueError(f"run_fwd: unknown core {variant!r}")
     if pair_blocks.dim() != 3 or pair_blocks.shape[1:] != (NCHAN, CHUNK):
@@ -193,9 +226,34 @@ def run_fwd(pair_blocks: torch.Tensor, starts: torch.Tensor, variant: str, num_t
     _cuda.check_cuda_tensor(starts, "starts", torch.int32, 1)
     out = torch.empty((num_tiles, 6, tile_h * tile_w), dtype=torch.float32,
                       device=pair_blocks.device)
-    KERNELS[variant].launch(pair_blocks.data_ptr(), starts.data_ptr(), out.data_ptr(),
-                            num_tiles, pair_blocks.shape[0], IMAGE_WIDTH // tile_w)
+    (kernel or KERNELS[variant]).launch(pair_blocks.data_ptr(), starts.data_ptr(),
+                                        out.data_ptr(), num_tiles, pair_blocks.shape[0],
+                                        IMAGE_WIDTH // tile_w)
     return out
+
+
+def cluster_copy(cluster: int, directory: str):
+    """The cores of a copy of csrc/probe_composite.cu, written into
+    `directory`, whose tiles are clusters of `cluster` blocks (1, 2, 4 or
+    8): {core: kernel}, for run_fwd(kernel=...)."""
+    source = KERNELS["A"].source
+    with open(source) as f:
+        text, n = re.subn(r"constexpr int kCluster = \d+;", f"constexpr int kCluster = {cluster};",
+                          f.read())
+    if n != 1:
+        raise RuntimeError(f"cluster_copy: no kCluster in {source}")
+    path = os.path.join(directory, f"probe_composite_cluster{cluster}.cu")
+    with open(path, "w") as f:
+        f.write(text)
+    return {c: _cuda.CudaKernel(path, k.symbol, k.argtypes) for c, k in KERNELS.items()}
+
+
+def log1p_mismatches(device) -> int:
+    """The alpha in [0, 0.99] (every f32 value) at which the kernels' log1p
+    and the library's log1pf differ other than by the sign of a zero."""
+    bad = torch.zeros(1, dtype=torch.int32, device=device)
+    LOG1P_CHECK.launch(bad.data_ptr())
+    return int(bad.item())
 
 
 def pair_pixels(out: torch.Tensor, starts: torch.Tensor, chunk_n: int = CHUNK) -> float:
@@ -205,6 +263,45 @@ def pair_pixels(out: torch.Tensor, starts: torch.Tensor, chunk_n: int = CHUNK) -
     c0, c1 = s[:-1], s[1:]
     walked_end = (c0 // chunk_n + out[:, 5, 0].to(torch.int64)) * chunk_n
     return float((torch.minimum(c1, walked_end) - c0).clamp_min(0).sum()) * out.shape[2]
+
+
+def walked_blocks(starts: torch.Tensor, kend: torch.Tensor, nblk: int) -> int:
+    """Distinct blocks the tiles walked: tile t reads blocks
+    starts[t] // 128 .. + kend[t] - 1."""
+    first = starts[:-1].long().clamp_max(nblk * CHUNK) // CHUNK
+    span = torch.arange(int(kend.max()) if kend.numel() else 0, device=kend.device)
+    ids = first[:, None] + span[None]
+    return int(torch.unique(ids[span[None] < kend.long()[:, None]]).numel())
+
+
+def sm_clock_mhz() -> float:
+    """The SM clock's maximum, as nvidia-smi reports it."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+
+
+def bound(out: torch.Tensor, starts: torch.Tensor, nblk: int, core: str, sms: int,
+          clock_mhz: float):
+    """The least time the call could take: the largest of its f32
+    operations at PEAK_F32_FLOPS, its transcendentals at MUFU_PER_SM_CLOCK
+    results per SM and clock on `sms` SMs at `clock_mhz`, and its bytes (the
+    walked blocks once, the starts and the output) at PEAK_BYTES_PER_S. The
+    counts are the function's (OPS_PER_PAIR_PIXEL,
+    TRANSCENDENTALS_PER_PAIR_PIXEL) over the walked pair-pixels. Returns
+    (ms, what sets it: "f32 operations", "transcendentals" or "bytes", the
+    three times in ms by name)."""
+    pp = pair_pixels(out, starts)
+    nbytes = (walked_blocks(starts, out[:, 5, 0], nblk) * NCHAN * CHUNK * 4
+              + starts.numel() * 4 + out.numel() * 4)
+    times = {
+        "f32 operations": pp * OPS_PER_PAIR_PIXEL[core] / PEAK_F32_FLOPS * 1e3,
+        "transcendentals": pp * TRANSCENDENTALS_PER_PAIR_PIXEL[core]
+        / (MUFU_PER_SM_CLOCK * sms * clock_mhz * 1e6) * 1e3,
+        "bytes": nbytes / PEAK_BYTES_PER_S * 1e3,
+    }
+    by = max(times, key=times.get)
+    return times[by], by, times
 
 
 def perturbed(blocks: torch.Tensor, n: int):
@@ -218,27 +315,76 @@ def main() -> int:
     parser.add_argument("--tiles", type=int, default=300)
     parser.add_argument("--blocks", type=int, default=7, help="blocks per tile")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--source", action="append", default=[],
+                        help="another copy of csrc/probe_composite.cu to time beside the shipped one")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("probe_kernels_r5: needs a CUDA card")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = sm_clock_mhz()
+    print(f"{card}; {sms} SMs at up to {clock:.0f} MHz", flush=True)
+    with tempfile.TemporaryDirectory(prefix="probe_composite_") as copies_dir:
+        sources = {f"cluster of {cl}": cluster_copy(cl, copies_dir) for cl in CLUSTER_SWEEP}
+        sources.update({os.path.splitext(os.path.basename(p))[0]: {
+            c: _cuda.CudaKernel(os.path.abspath(p), k.symbol, k.argtypes)
+            for c, k in KERNELS.items()} for p in args.source})
+        _cuda._build([KERNELS["A"]] + [ks["A"] for ks in sources.values()])
+        for kernels in sources.values():  # loaded while the copies exist
+            for k in kernels.values():
+                k._load()
     blocks_np, starts_np, _ = make_blocks(args.tiles, args.blocks, args.seed)
     blocks = torch.from_numpy(blocks_np).cuda()
     starts = torch.from_numpy(starts_np).cuda()
-    print(f"blocks {tuple(blocks.shape)} tiles {args.tiles}")
-    ref = None
-    for v in CORES:
-        out = run_fwd(blocks, starts, v, args.tiles)
-        if ref is None:
-            ref = out
-            print(f"{v}: reference; kend mean {out[:, 5, 0].mean().item():.2f} "
-                  f"of {args.blocks} per tile: low-opacity tiles still leave early)")
-        else:
-            diff = (out[:, :5] - ref[:, :5]).abs().max().item()
-            print(f"{v}: maxdiff vs A = {diff:.3e}")
+    nblk = blocks.shape[0]
     copies = perturbed(blocks, 16)
+    print(f"blocks {tuple(blocks.shape)} tiles {args.tiles}, a cluster of {CLUSTER} blocks per "
+          f"tile", flush=True)
+    result = {"card": card, "sms": sms, "clock_mhz": clock, "cluster": CLUSTER, "cores": {},
+              "log1p_mismatches": log1p_mismatches(blocks.device)}
+    print(f"the kernels' log1p against log1pf at every f32 alpha in [0, 0.99]: "
+          f"{result['log1p_mismatches']} differ", flush=True)
+    outs = {}
     for v in CORES:
-        dt = slope(lambda i, v=v: run_fwd(copies[i], starts, v, args.tiles))
-        print(f"variant {v}: {dt * 1e3:.4f} ms  ({dt * 1e9 / blocks.shape[0]:.0f} ns/blk)")
+        out = outs[v] = run_fwd(blocks, starts, v, args.tiles)
+        ref = composite_plain(blocks, starts, v, args.tiles)
+        torch.cuda.synchronize()
+        err = (out[:, :5] - ref[:, :5]).abs().max().item()
+        vs_a = (out[:, :5] - outs["A"][:, :5]).abs().max().item()
+        kend_equal = torch.equal(out[:, 5], ref[:, 5])
+        ms = slope(lambda i, v=v: run_fwd(copies[i], starts, v, args.tiles)) * 1e3
+        b_ms, by, parts = bound(out, starts, nblk, v, sms, clock)
+        result["cores"][v] = {"ms": ms, "err_vs_plain": err, "vs_a": vs_a,
+                              "kend_equal": kend_equal, "bound_ms": b_ms, "bound_by": by,
+                              "parts_ms": parts, "kend_mean": out[:, 5, 0].mean().item(),
+                              "pair_pixels": pair_pixels(out, starts)}
+        print(f"{v}: kend mean {out[:, 5, 0].mean().item():.2f} of {args.blocks}, kend "
+              f"{'equal to' if kend_equal else 'DIFFERS from'} the plain version's, max diff "
+              f"{err:.3e} from it, {vs_a:.3e} from A; {ms:.4f} ms ({ms * 1e6 / nblk:.0f} ns/blk); "
+              f"bound {b_ms:.4f} ms by {by} (f32 operations {parts['f32 operations']:.4f}, "
+              f"transcendentals at {MUFU_PER_SM_CLOCK} MUFU results per SM and clock "
+              f"{parts['transcendentals']:.4f}, bytes {parts['bytes']:.4f}): "
+              f"{100 * b_ms / ms:.1f}% of the bound", flush=True)
+    result["sources"] = {}
+    for name, kernels in sources.items():
+        result["sources"][name] = {}
+        for v in CORES:
+            out = run_fwd(blocks, starts, v, args.tiles, kernel=kernels[v])
+            ref = composite_plain(blocks, starts, v, args.tiles)
+            err = (out[:, :5] - ref[:, :5]).abs().max().item()
+            same = torch.equal(out, outs[v])
+            ms = slope(lambda i, v=v: run_fwd(copies[i], starts, v, args.tiles,
+                                              kernel=kernels[v])) * 1e3
+            shipped = slope(lambda i, v=v: run_fwd(copies[i], starts, v, args.tiles)) * 1e3
+            result["sources"][name][v] = {"ms": ms, "shipped_ms": shipped, "err_vs_plain": err,
+                                          "kend_equal": torch.equal(out[:, 5], ref[:, 5]),
+                                          "equal_to_shipped": same}
+            print(f"{name} {v}: {ms:.4f} ms beside the shipped build's {shipped:.4f}, max diff "
+                  f"{err:.3e} from the plain version, bits "
+                  f"{'equal to' if same else 'differing from'} the shipped build's", flush=True)
+    print(card)
+    print(json.dumps(result))
     return 0
 
 

@@ -710,16 +710,27 @@ def test_probe_gather_rejects_a_table_past_shared_memory(cuda):
     assert torch.equal(p1.gather("shared", fits, idx), fits[idx.long()])
 
 
-@pytest.mark.parametrize("case", ["blocks", "ragged"])
-def test_probe_composite_cores_match_plain(cuda, case):
+def _p2_case(case):
+    """P2's inputs by name: blocks, ragged saturating ranges, tiles of which
+    one half saturates first (the halves of a tile's cluster), and the
+    probe's full shape."""
     from gaussreg_tpu_torch.tools import probe_kernels_r5 as p2
-    from test_torch_port_probes import ragged_saturating_blocks
+    from test_torch_port_probes import half_saturating_blocks, ragged_saturating_blocks
 
     if case == "blocks":
         blocks, starts, _ = p2.make_blocks(num_tiles=40, blocks_per_tile=3, seed=2)
-        tiles = 40
-    else:
-        blocks, starts, tiles = ragged_saturating_blocks()
+        return blocks, starts, 40
+    if case == "full":
+        blocks, starts, _ = p2.make_blocks()
+        return blocks, starts, starts.shape[0] - 1
+    return ragged_saturating_blocks() if case == "ragged" else half_saturating_blocks()
+
+
+@pytest.mark.parametrize("case", ["blocks", "ragged", "half", "full"])
+def test_probe_composite_cores_match_plain(cuda, case):
+    from gaussreg_tpu_torch.tools import probe_kernels_r5 as p2
+
+    blocks, starts, tiles = _p2_case(case)
     blocks, starts = torch.from_numpy(blocks).to(cuda), torch.from_numpy(starts).to(cuda)
     limits = {"A": 1e-5, "B": 5e-4, "C": 1e-5, "D": 1e-5}
     for core, kernel in p2.KERNELS.items():
@@ -731,6 +742,32 @@ def test_probe_composite_cores_match_plain(cuda, case):
         assert torch.equal(out[:, 5], ref[:, 5]), core
         err = (out[:, :5] - ref[:, :5]).abs().max().item()
         assert err <= limits[core], (core, err)
+
+
+def test_probe_composite_log1p_is_the_library_s(cuda):
+    """The kernels' branch-free log1p equals the library's log1pf at every
+    f32 alpha in [0, 0.99], up to the sign of a zero."""
+    from gaussreg_tpu_torch.tools import probe_kernels_r5 as p2
+
+    assert p2.log1p_mismatches(cuda) == 0
+
+
+@pytest.mark.parametrize("case", ["ragged", "half"])
+def test_probe_composite_cluster_sizes_agree(cuda, case, tmp_path):
+    """A tile composited by a cluster of 1, 2, 4 or 8 blocks (the cluster
+    sweep's copies of the source beside the shipped build): every pixel's
+    arithmetic and the tile's exit are the same, so every bit is."""
+    from gaussreg_tpu_torch.tools import probe_kernels_r5 as p2
+
+    blocks, starts, tiles = _p2_case(case)
+    blocks, starts = torch.from_numpy(blocks).to(cuda), torch.from_numpy(starts).to(cuda)
+    copies = {cl: p2.cluster_copy(cl, str(tmp_path)) for cl in (1, 4, 8)}
+    for core in p2.CORES:
+        ref = p2.run_fwd(blocks, starts, core, tiles)
+        for cluster, kernels in copies.items():
+            out = p2.run_fwd(blocks, starts, core, tiles, kernel=kernels[core])
+            torch.cuda.synchronize()
+            assert torch.equal(out, ref), (core, cluster)
 
 
 @pytest.mark.parametrize("w,k", [(25_600, 35), (25_601, 35), (2048 * 13 + 1, 89),
