@@ -155,16 +155,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    36 (the einsum route: 14 calls, no K2 launch); render_sharded with 2
    gloo ranks on this card (200 000 gaussians, one 640x480 view, forward
    and backward) against render, K4-K6 launched on each rank.
+14. the hard-tier gate and the diagnostic tools' twins
+   (`diagnostics_phase`): the JAX test's gate
+   (tests/test_trained_checkpoint.py:72-116) with the trained checkpoint on
+   random_pair(cfg, 20_000_000 + i, tier="hard"), i < 8, through
+   make_eval_step (RANSAC seeded seed % 97, as the JAX test's keys): at
+   least 6 pairs with RR = 1, every success with RRE < 5 deg and RMSE <
+   0.1, each pair's line beside the JAX transcript's
+   (checkpoints/eval_transcript_hard.json: 6 of these 8, recall 0.906 over
+   32); then gaussreg_tpu_torch.tools' calibrate_neighbors on 2 synthetic
+   pairs (K1 at limit 128), probe_overflow on 2 seeds, diagnose_eval on one
+   pair and diagnose_hard_failures on its 3 seeds at window_rows0 2, 3 and
+   4, launch counts zeroed before each and read after (13 K1 per pyramid;
+   14 K2 and one fused K3 per forward); K1's first call at limit 128 and at
+   window_rows0 = 4 held against window_select_plain index for index and
+   timed as in phase 4.
 
 Prints the build seconds, the card's name and power limit, a line per
 pair, a line per kernel call, the profiles, a {"kernels": [...]} JSON line
-listing twenty-one entries (K1, K2, K3's two entries, K4-K6, P1's three,
+listing twenty-three entries (K1, K2, K3's two entries, K4-K6, P1's three,
 P2's four, and from phase 13 K3's `select_min_k` route on the pallas
 pyramid, its `select_min_k_wide` route, its four runs past k = 128 (named
 by route and shape: `select_min_k:widest_k129`,
 `select_min_k_radix:widest_k700`, `select_min_k:block_k129`,
 `select_min_k_radix:knn_k2048`) and K6's
-generic entry; K2's entry also carries its backward's
+generic entry, and from phase 14 K1 as `window_select_idx:limit128` and
+`window_select_idx:window_rows0_4`); K2's entry also carries its backward's
 time, and its forward's and backward's device ms in one profiled train
 step), the card's name and power limit again, and as the last line
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -2107,6 +2123,184 @@ def library_phase(cfg, dev, pair, fine_ref, cams):
     return entries
 
 
+# phase 14: the JAX test's hard-tier gate (tests/test_trained_checkpoint.py:
+# 72-116) and the JAX transcript it is read beside
+HARD_PAIRS, HARD_MIN_OK, HARD_MAX_RRE, HARD_MAX_RMSE = 8, 6, 5.0, 0.1
+HARD_TRANSCRIPT = os.path.join(ROOT, "checkpoints", "eval_transcript_hard.json")
+PYRAMID_SEARCHES = 13  # K1 launches per pyramid: 5 self, 4 subsampling, 4 upsampling
+
+
+def first_call():
+    """A Capture `record` that keeps the first call's arguments only."""
+    seen = []
+
+    def record(args, kwargs):
+        seen.append(1)
+        return (args, kwargs) if len(seen) == 1 else None
+
+    return record
+
+
+def diagnostics_phase(cfg, model, dev):
+    """14. the hard-tier gate and the diagnostic tools' twins. (a) The JAX
+    test's hard-tier gate with the trained checkpoint: random_pair(cfg,
+    20_000_000 + i, tier="hard") for i < 8 through make_eval_step, RANSAC
+    drawn from a generator seeded seed % 97 (the JAX test's PRNGKey(seed %
+    97)); at least 6 pairs with RR = 1, every success with RRE < 5 deg and
+    RMSE < 0.1; each pair logged beside the JAX transcript's row. (b)
+    `calibrate_neighbors.calibrate` on 2 synthetic samples (4 clouds, K1 at
+    limit 128 and a 5-row level-0 window), (c) `probe_overflow.probe_pair`
+    on 2 seeds, (d) `diagnose_eval.diagnose` on one pair, (e)
+    `diagnose_hard_failures` on its three seeds at window_rows0 2, 3 and 4;
+    launch counts zeroed before each and read after: 13 K1 per pyramid,
+    and in (d) 14 K2 and one fused K3. The first K1 call of (b) (level 0,
+    limit 128) and of (e) at window_rows0 = 4 (limit 35, a 4-row window)
+    are held against window_select_plain index for index and timed as in
+    phase 4. Returns their two {"kernels"} entries."""
+    import numpy as np
+    import torch
+
+    from gaussreg_tpu_torch.data.pipeline import make_pair_batch
+    from gaussreg_tpu_torch.data.synthetic import random_pair
+    from gaussreg_tpu_torch.engine.trainer import make_eval_step
+    from gaussreg_tpu_torch.ops import _cuda, fused_select
+    from gaussreg_tpu_torch.ops import neighbors as neighbors_mod
+    from gaussreg_tpu_torch.tools import (
+        calibrate_neighbors,
+        diagnose_eval,
+        diagnose_hard_failures,
+        probe_overflow,
+    )
+
+    t_phase = time.perf_counter()
+    with open(HARD_TRANSCRIPT) as f:
+        transcript = json.load(f)
+    jax_rows = {r["seed"]: r for r in transcript["pairs"]}
+
+    # (a) the hard-tier gate
+    eval_step = make_eval_step(model, cfg)
+    rows = []
+    for i in range(HARD_PAIRS):
+        seed = 20_000_000 + i
+        batch = make_pair_batch(cfg, *random_pair(cfg, seed, tier="hard"), device=dev)
+        _, met = eval_step(batch, torch.Generator(device=dev).manual_seed(seed % 97))
+        met = {k: float(v) for k, v in met.items()}
+        rows.append(met)
+        j = jax_rows[seed]
+        log(f"hard {seed}: RR={met['RR']:.0f} RRE={met['RRE']:.4f}deg RMSE={met['RMSE']:.5f} "
+            f"RTE={met['RTE']:.5f} RSE={met['RSE']:.5f} PIR={met['PIR']:.3f} "
+            f"vox_overflow={met['vox_overflow']:.0f}; JAX transcript RR={j['RR']:.0f} "
+            f"RRE={j['RRE']:.4f}deg RMSE={j['RMSE']:.5f}")
+    ok = [r for r in rows if r["RR"] == 1.0]
+    jax_ok = sum(jax_rows[20_000_000 + i]["RR"] == 1.0 for i in range(HARD_PAIRS))
+    gate = (len(ok) >= HARD_MIN_OK and all(r["RRE"] < HARD_MAX_RRE for r in ok)
+            and all(r["RMSE"] < HARD_MAX_RMSE for r in ok))
+    log(f"hard tier: {len(ok)}/{HARD_PAIRS} registered (gate >= {HARD_MIN_OK}, successes RRE < "
+        f"{HARD_MAX_RRE} deg and RMSE < {HARD_MAX_RMSE}: max RRE "
+        f"{max([r['RRE'] for r in ok], default=float('nan')):.4f}, max RMSE "
+        f"{max([r['RMSE'] for r in ok], default=float('nan')):.5f}); JAX transcript "
+        f"{jax_ok}/{HARD_PAIRS} on these seeds, recall_RMSE<0.2 "
+        f"{transcript['summary']['recall_RMSE<0.2']:.3f} over its "
+        f"{transcript['summary']['num_pairs']} pairs")
+    if not gate:
+        raise AssertionError(f"the hard-tier gate failed: {rows}")
+
+    def counted(what, fn, expect):
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = _cuda.launch_counts()
+        log(f"{what}: {dt:.3f} s, launches {counts}")
+        for name, n in expect.items():
+            if counts[name] != n:
+                raise AssertionError(f"{what}: {counts[name]} {name} launches, expected {n}")
+        return result, counts
+
+    # (b) twin 1: calibrate_neighbors on 2 synthetic samples
+    rec_128 = first_call()
+    with Capture(neighbors_mod, "window_select_idx", record=rec_128) as cap_128:
+        (limits, hists), c_cal = counted(
+            "calibrate_neighbors (2 samples, 4 clouds)",
+            lambda: calibrate_neighbors.calibrate(
+                cfg, calibrate_neighbors.synthetic_clouds(cfg, 2), 0.8, dev),
+            {"window_select_idx": 4 * PYRAMID_SEARCHES})
+    limit_m = calibrate_neighbors.measure_limits(cfg)[0]
+    log(f"calibrate_neighbors: limits {limits} at the measuring limit {limit_m} "
+        f"(config {list(cfg.capacity.neighbor_limits)}); level-0 points at the limit: "
+        f"{int(hists[0][-1])} of {int(hists[0].sum())}")
+    if not (hists.sum(axis=1) > 0).all() or not all(0 < x <= limit_m for x in limits):
+        raise AssertionError(f"calibrate_neighbors: limits {limits}, hists {hists.sum(axis=1)}")
+
+    # (c) twin 2: probe_overflow on 2 seeds
+    for seed in (12345, 0):
+        (overflow, results), _ = counted(
+            f"probe_overflow seed {seed}",
+            lambda: probe_overflow.probe_pair(cfg, seed, quiet=True, device=dev),
+            {"window_select_idx": PYRAMID_SEARCHES})
+        worst = min(results, key=lambda r: r[1])
+        log(f"probe_overflow seed {seed}: search_overflow={overflow}, {len(results)} lists, "
+            f"worst recall {worst[1]:.4f} ({worst[0]}, {worst[2]}/{worst[3]} missing)")
+        if len(results) != 18 or not all(0.0 <= r[1] <= 1.0 for r in results):
+            raise AssertionError(f"probe_overflow seed {seed}: {results}")
+
+    # (d) twin 3: diagnose_eval on one pair
+    batch = make_pair_batch(cfg, *random_pair(cfg, 10_000_000), device=dev)
+    res, _ = counted(
+        "diagnose_eval seed 10000000",
+        lambda: diagnose_eval.diagnose(model, cfg, batch,
+                                       torch.Generator(device=dev).manual_seed(3)),
+        {"window_select_idx": 0, "kpconv_fused_apply": 14, "kth_largest_rows_cols": 1})
+    for line in diagnose_eval.report(res, cfg):
+        log(f"diagnose_eval: {line}")
+    if not (all(np.isfinite(v) for v in res.values()) and res["proposals"] > 0):
+        raise AssertionError(f"diagnose_eval: {res}")
+
+    # (e) twin 4: diagnose_hard_failures, its 3 seeds at window_rows0 2, 3, 4
+    rec_wr4 = first_call()
+
+    def hard_failures():
+        out = []
+        for wr in diagnose_hard_failures.WINDOW_ROWS:
+            wcfg = diagnose_hard_failures.with_window_rows0(cfg, wr)
+            for seed in diagnose_hard_failures.SEEDS:
+                if wr == 4:
+                    with Capture(neighbors_mod, "window_select_idx", record=rec_wr4) as c:
+                        met = diagnose_hard_failures.diagnose_seed(model, wcfg, seed, dev)
+                    cap_wr4.extend(c.calls)
+                else:
+                    met = diagnose_hard_failures.diagnose_seed(model, wcfg, seed, dev)
+                out.append({"seed": seed, "window_rows0": wr, **met})
+        return out
+
+    cap_wr4 = []
+    runs = len(diagnose_hard_failures.WINDOW_ROWS) * len(diagnose_hard_failures.SEEDS)
+    hard_rows, c_hard = counted("diagnose_hard_failures (3 seeds x window_rows0 2, 3, 4)",
+                                hard_failures, {"window_select_idx": runs * PYRAMID_SEARCHES})
+    for row in hard_rows:
+        log(f"diagnose_hard_failures: {json.dumps(row)}")
+        if not all(np.isfinite(v) for v in row.values()):
+            raise AssertionError(f"diagnose_hard_failures: {row}")
+
+    # K1 at limit 128 and at window_rows0 = 4, held and timed as in phase 4
+    entries = []
+    for name, calls, launches in (
+        ("window_select_idx:limit128", cap_128.calls, c_cal["window_select_idx"]),
+        ("window_select_idx:window_rows0_4", cap_wr4, c_hard["window_select_idx"]),
+    ):
+        calls = [c for c in calls if c is not None]
+        rows_k, tot = measure(name, calls, fused_select.window_select_idx,
+                              fused_select.window_select_plain, exact, window_select_topk,
+                              window_select_cost, "f32")
+        for row in rows_k:
+            log(row)
+        entries.append(kernel_entry(name, "gaussreg_tpu_torch/csrc/window_select.cu",
+                                    "gaussreg_tpu/ops/fused_select.py:145", launches, tot, "f32"))
+    log(f"diagnostics phase: {time.perf_counter() - t_phase:.2f} s")
+    return entries
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--pairs", type=int, default=8, help="held-out pairs to register")
@@ -2409,6 +2603,9 @@ def main() -> int:
 
     # 13. the library surface beyond the main path
     kernels += library_phase(cfg, dev, pairs[-1][1], ref_g, cams[:1])
+
+    # 14. the hard-tier gate and the diagnostic tools' twins
+    kernels += diagnostics_phase(cfg, model, dev)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,6 +10,7 @@ shapes and dtypes from it.
 """
 
 import dataclasses
+import importlib
 import os
 
 import numpy as np
@@ -193,3 +194,17 @@ def test_clis_default_to_cuda(tmp_path):
         demo.main(["--ref", "a.ply", "--src", "b.ply", "--output_dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         fuse.main(["--input1", "a.ply", "--input2", "b.ply", "--output", "c.ply"])
+    # the diagnostic and profiling twins: CUDA unless --cpu
+    for name, argv in (
+        ("calibrate_neighbors", []),
+        ("probe_overflow", []),
+        ("diagnose_eval", ["--ckpt", "w.msgpack"]),
+        ("diagnose_hard_failures", ["--ckpt", "w.msgpack"]),
+        ("probe_generalization", ["--weights", "w.msgpack"]),
+        ("profile_fine", []),
+        ("profile_eval", []),
+        ("profile_trainstep", []),
+    ):
+        module = importlib.import_module(f"gaussreg_tpu_torch.tools.{name}")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            module.main(argv)
