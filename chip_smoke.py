@@ -15,13 +15,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    selections (K1), 14 KPConv aggregations (K2) and one fused mutual-top-k
    threshold launch (K3's `kth_largest_rows_cols`) per pair, and no launch
    of the generic k-min selection on any of its three routes
-   (`select_min_k`, `select_min_k_wide`, `select_min_k_radix`).
+   (`select_min_k`, `select_min_k_wide`, `select_min_k_radix`). K1 runs
+   in place (`fused_select.window_select_runs`): its windows are never
+   gathered (`fused_select.gather_windows`) and its plain version never
+   runs (both captured around the pairs: zero calls).
 3. .ply entry point: api.register_gs_pair(fine=False) on two .ply files of
    one synthetic scene written by the port's gs/ply.py writer (counts
    zeroed and read around it too); the transform must be finite and its
    rotation within 5 degrees of the known one.
 4. kernels: every K1/K2/K3 call of one pair's forward is replayed on its
-   captured inputs; the kernel is held against its plain PyTorch version
+   captured inputs (K1's 13 calls of its in-place entry; beside each, the
+   gathered entry on the gathered windows, held against it bit for bit, and
+   the old route, the gather and the gathered entry, timed; torch.topk
+   runs on the masked d2 made before the timed call, so it leaves out the
+   gather and the d2; K1's bound counts the queries, run bounds, window
+   rows, the sorted planes once and the outputs, and 8 f32 operations per
+   valid candidate, with the L2 reads printed beside it); the
+   kernel is held against its plain PyTorch version
    (K1 and K3 index-for-index and value-for-value; K2 within 4e-3 of the
    plain output's max, the size of one bf16 rounding step of a weighted
    sum) and timed (kernel and library call by the slope between CUDA
@@ -138,7 +148,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
 13. the library surface beyond the main path (`library_phase`): one
    held-out pair's pyramid through the legacy select_kernel="pallas"
    branch (K3's `select_min_k` route, 13 launches) equal to the fused
-   route's, both timed, its K3 calls held and timed; the brute-force
+   route's, both timed, its K3 calls held and timed; the fused route with
+   K1 in place and through the old route (the gather and the gathered
+   entry), equal index for index, each timed warm over PYRAMID_REPEATS
+   turns that alternate which route runs first (medians), with its peak
+   torch.cuda.max_memory_allocated above what was held before; the brute-force
    radius_search at N = M = 30 720 through K3's `select_min_k_wide` route,
    equal to its plain version, timed; K3 past k = 128 (the filter or the
    radix select, as the route names) on the widest pyramid call's rows at
@@ -168,8 +182,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    pair and diagnose_hard_failures on its 3 seeds at window_rows0 2, 3 and
    4, launch counts zeroed before each and read after (13 K1 per pyramid;
    14 K2 and one fused K3 per forward); K1's first call at limit 128 and at
-   window_rows0 = 4 held against window_select_plain index for index and
-   timed as in phase 4.
+   window_rows0 = 4 held against window_select_runs_plain index for index
+   and timed as in phase 4.
 
 Prints the build seconds, the card's name and power limit, a line per
 pair, a line per kernel call, the profiles, a {"kernels": [...]} JSON line
@@ -193,6 +207,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -330,19 +345,48 @@ def within_bf16_step(a, b, _args):
     return err
 
 
-def window_select_topk(q, lsle, wx, wy, wz, widx, limit, nruns, wspan):
+def gathered_args(q, lsle, wrow, px, py, pz, pidx, limit, nruns, wspan):
+    """An in-place K1 call's arguments for the gathered entry: its windows
+    cut from the sorted planes as the JAX package cuts them (the old route's
+    gather, `fused_select.gather_windows`)."""
+    from gaussreg_tpu_torch.ops import fused_select as fs
+
+    return (q, lsle, *fs.gather_windows(wrow, px, py, pz, pidx, wspan), limit, nruns, wspan)
+
+
+def window_select_topk(q, lsle, wrow, px, py, pz, pidx, limit, nruns, wspan):
+    """torch.topk on the masked (P, W) d2 of the gathered windows, made
+    before the timed call: the yardstick leaves out the gather and the d2."""
     import torch
     from gaussreg_tpu_torch.ops import fused_select as fs
 
+    _, _, wx, wy, wz, _, _, _, _ = gathered_args(q, lsle, wrow, px, py, pz, pidx, limit, nruns,
+                                                 wspan)
     masked = torch.where(fs.window_valid(lsle, nruns, wspan), fs.window_d2(q, wx, wy, wz),
                          torch.finfo(torch.float32).max)
+    del wx, wy, wz
     return lambda: torch.topk(masked, limit, dim=1, largest=False)
 
 
-def window_select_cost(q, lsle, wx, wy, wz, widx, limit, nruns, wspan):
-    p, w = wx.shape
-    nbytes = p * (q.shape[1] * 4 + 2 * nruns * 4 + 4 * w * 4 + limit * 8)
-    return nbytes, 8.0 * p * w, f"P={p} W={w} limit={limit}"
+def valid_candidates(lsle, nruns, wspan) -> int:
+    """Candidates inside their run's [ls, le), over all rows."""
+    lo = lsle[:, :nruns].clamp_min(0)
+    hi = lsle[:, nruns:].clamp_max(wspan)
+    return int((hi - lo).clamp_min(0).sum())
+
+
+def window_select_cost(q, lsle, wrow, px, py, pz, pidx, limit, nruns, wspan):
+    """K1 in place: the queries, run bounds and window rows read once, the
+    sorted x, y, z and id planes once per batch, the (P, limit) d2 and ids
+    written; 8 f32 operations (3 subtractions, 3 products, 2 sums) per valid
+    candidate, what this call's data needs. Left out: the candidates' reads
+    from L2 (16 B each), printed beside it for the (P, W) window and for the
+    valid candidates."""
+    p, w = q.shape[0], nruns * wspan
+    nv = valid_candidates(lsle, nruns, wspan)
+    nbytes = 4 * (q.numel() + lsle.numel() + wrow.numel() + 4 * px.numel()) + p * limit * 8
+    return nbytes, 8.0 * nv, (f"P={p} W={w} limit={limit} valid={nv} (L2 reads 16 B x P x W "
+                              f"{16 * p * w / 1e9:.3f} GB, of the valid {16 * nv / 1e9:.4f} GB)")
 
 
 def kpconv_einsums(nf, infl, w):
@@ -408,6 +452,48 @@ def kernel_entry(name, src, replaces, launches, tot, kind):
             "launches": launches, "max_abs_err": tot["err"], "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": tot["library_ms"]}
+
+
+K1_SOURCE = "gaussreg_tpu_torch/csrc/window_select.cu"
+K1_REPLACES = "gaussreg_tpu/ops/fused_select.py:145"
+
+
+def k1_phase(name, calls, launches):
+    """K1 on captured calls of the in-place entry (`window_select_runs`), by
+    `measure`: held against its plain version index for index and value for
+    value, timed beside the plain version, torch.topk on the masked d2
+    (`window_select_topk`) and the bound (`window_select_cost`). Beside each
+    call, under the same clock: the gathered entry on the gathered windows
+    (held against the in-place entry bit for bit) and the old route, the
+    gather and the gathered entry together (graph slopes). Returns the
+    {"kernels"} entry, with the totals of both as `gathered_ms` and
+    `old_route_ms`."""
+    import inspect
+
+    import torch
+    from gaussreg_tpu_torch.ops import fused_select as fs
+
+    sig = inspect.signature(fs.window_select_runs)
+    calls = [(tuple(sig.bind(*a, **kw).arguments.values()), {}) for a, kw in calls]
+    rows, tot = measure(name, calls, fs.window_select_runs, fs.window_select_runs_plain, exact,
+                        window_select_topk, window_select_cost, "f32")
+    t_gathered = t_old = 0.0
+    for row, (args, kw) in zip(rows, calls):
+        g = gathered_args(*args)
+        exact(fs.window_select_idx(*g), fs.window_select_runs(*args), None)
+        t_g = graph_ms(lambda: fs.window_select_idx(*g))
+        del g
+        t_o = graph_ms(lambda: fs.window_select_idx(*gathered_args(*args)))
+        t_gathered += t_g
+        t_old += t_o
+        log(f"{row} gathered_entry={t_g:.4f}ms old_route(gather+gathered entry)={t_o:.4f}ms")
+    torch.cuda.empty_cache()
+    log(f"{name}: {len(calls)} calls; the gathered entry {t_gathered:.4f} ms, the old route "
+        f"{t_old:.4f} ms in all")
+    entry = kernel_entry(name, K1_SOURCE, K1_REPLACES, launches, tot, "f32")
+    entry["gathered_ms"] = t_gathered
+    entry["old_route_ms"] = t_old
+    return entry
 
 
 def k3_phase(calls, launches):
@@ -1732,6 +1818,7 @@ def accumulate_generic_cost(rows, gid, num_out):
 # search's first block (the first k past the lane queues of 8), and
 # knn_search's k (past the 200 KiB of chunk winners the card once refused)
 BIG_KS = (129, 700)
+PYRAMID_REPEATS = 10  # turns of the fused pyramid, in place and through the old route
 KNN_K = 2048
 
 
@@ -1800,6 +1887,11 @@ def library_phase(cfg, dev, pair, fine_ref, cams):
     equal to the fused route's index for index; both pyramids timed (host
     clock, a device sync, second of two runs); the 13 captured K3 calls held
     against the plain version and timed beside torch.topk and their bound.
+    The fused route is run with K1 in place and through the old route (the
+    gather, then the gathered entry), equal index for index: once each to
+    warm, then PYRAMID_REPEATS turns alternating which route runs first,
+    each run timed and its peak torch.cuda.max_memory_allocated read (reset
+    before, less what was held before); the medians are kept.
     (b) the brute-force radius_search at N = M = 30 720 (level 0 of that
     pair's reference cloud at the level-0 radius, limit 35) through K3's
     select_min_k_wide route (30 launches of 1024 query rows), equal to the
@@ -1846,7 +1938,7 @@ def library_phase(cfg, dev, pair, fine_ref, cams):
     from gaussreg_tpu_torch.gs.rasterizer.render import render
     from gaussreg_tpu_torch.models import kpconv as kpconv_mod
     from gaussreg_tpu_torch.models.backbone import KPConvFPN
-    from gaussreg_tpu_torch.ops import _cuda, kpconv_kernel, select_k
+    from gaussreg_tpu_torch.ops import _cuda, fused_select, kpconv_kernel, select_k
     from gaussreg_tpu_torch.ops import neighbors as nb
     from gaussreg_tpu_torch.tools import render_sharded_check as rsc
 
@@ -1863,8 +1955,53 @@ def library_phase(cfg, dev, pair, fine_ref, cams):
             torch.cuda.synchronize()
             return b, (time.perf_counter() - t0) * 1e3
 
-    batch("fused")
-    fused, t_fused = batch("fused")
+    def old_route(q, lsle, wrow, px, py, pz, pidx, limit, nruns, wspan):
+        return fused_select.window_select_idx(
+            *gathered_args(q, lsle, wrow, px, py, pz, pidx, limit, nruns, wspan))
+
+    def fused_run(route):
+        """The fused pyramid with K1 in place or through the old route: its
+        ms and the peak memory allocated across it above what was held
+        before, in bytes."""
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with Swap(nb, "window_select_runs", old_route if route == "old route"
+                  else nb.window_select_runs):
+            b, t = batch("fused")
+        return b, t, torch.cuda.max_memory_allocated() - held
+
+    # both routes warm, then PYRAMID_REPEATS turns, which runs first alternating
+    routes = ("in place", "old route")
+    runs = {route: fused_run(route) for route in routes}
+    times = {route: [] for route in routes}
+    peaks = {route: 0 for route in routes}
+    for turn in range(PYRAMID_REPEATS):
+        for route in routes if turn % 2 == 0 else routes[::-1]:
+            runs[route] = fused_run(route)
+            times[route].append(runs[route][1])
+            peaks[route] = max(peaks[route], runs[route][2])
+    t_fused, t_old = (statistics.median(times[route]) for route in routes)
+    peak_fused, peak_old = (peaks[route] for route in routes)
+    fused, old = runs["in place"][0], runs["old route"][0]
+    del runs
+    for route in routes:
+        log(f"pyramid (13 grid searches, one make_cfg() pair), fused route, K1 {route}: median "
+            f"{statistics.median(times[route]):.3f} ms of {times[route]} (host clock, device "
+            f"synced, make_pair_batch, warm, {PYRAMID_REPEATS} turns alternating which route "
+            f"runs first); torch.cuda.max_memory_allocated across a run at most "
+            f"{peaks[route] / 2**30:.3f} GiB above what was held before it")
+    for field in ("neighbors", "subsampling", "upsampling"):
+        for lvl, (a, b) in enumerate(zip(getattr(fused.pyramid, field),
+                                         getattr(old.pyramid, field))):
+            if not torch.equal(a, b):
+                raise AssertionError(f"pyramid {field}[{lvl}]: K1 in place differs from the old "
+                                     f"route in {(a != b).sum().item()} entries")
+    del old
+    wins = sum(a < b for a, b in zip(times["in place"], times["old route"]))
+    log(f"pyramid: K1 in place equal to the old route index for index; peak "
+        f"{peak_fused / 2**30:.3f} GiB against {peak_old / 2**30:.3f} GiB "
+        f"({(peak_old - peak_fused) / 2**30:.3f} GiB less), median {t_fused:.3f} ms against "
+        f"{t_old:.3f} ms, in place faster in {wins} of {PYRAMID_REPEATS} turns")
     batch("pallas")
     _cuda.reset_launch_counts()
     with Capture(nb, "select_min_k") as c3:
@@ -1895,7 +2032,10 @@ def library_phase(cfg, dev, pair, fine_ref, cams):
         log(row)
     entry = kernel_entry("select_min_k:pallas_pyramid", "gaussreg_tpu_torch/csrc/select_k.cu",
                          "gaussreg_tpu/ops/select_k.py:88", pallas_launches, tot, "f32")
-    entry["pyramid_ms"] = {"pallas": t_pallas, "fused": t_fused}
+    entry["pyramid_ms"] = {"pallas": t_pallas, "fused": t_fused, "fused_old_route": t_old,
+                           "fused_turns": times["in place"],
+                           "fused_old_route_turns": times["old route"]}
+    entry["pyramid_peak_bytes"] = {"fused": peak_fused, "fused_old_route": peak_old}
     entries.append(entry)
     del pallas
 
@@ -2155,15 +2295,15 @@ def diagnostics_phase(cfg, model, dev):
     launch counts zeroed before each and read after: 13 K1 per pyramid,
     and in (d) 14 K2 and one fused K3. The first K1 call of (b) (level 0,
     limit 128) and of (e) at window_rows0 = 4 (limit 35, a 4-row window)
-    are held against window_select_plain index for index and timed as in
-    phase 4. Returns their two {"kernels"} entries."""
+    are held against window_select_runs_plain index for index and timed as
+    in phase 4 (`k1_phase`). Returns their two {"kernels"} entries."""
     import numpy as np
     import torch
 
     from gaussreg_tpu_torch.data.pipeline import make_pair_batch
     from gaussreg_tpu_torch.data.synthetic import random_pair
     from gaussreg_tpu_torch.engine.trainer import make_eval_step
-    from gaussreg_tpu_torch.ops import _cuda, fused_select
+    from gaussreg_tpu_torch.ops import _cuda
     from gaussreg_tpu_torch.ops import neighbors as neighbors_mod
     from gaussreg_tpu_torch.tools import (
         calibrate_neighbors,
@@ -2220,7 +2360,7 @@ def diagnostics_phase(cfg, model, dev):
 
     # (b) twin 1: calibrate_neighbors on 2 synthetic samples
     rec_128 = first_call()
-    with Capture(neighbors_mod, "window_select_idx", record=rec_128) as cap_128:
+    with Capture(neighbors_mod, "window_select_runs", record=rec_128) as cap_128:
         (limits, hists), c_cal = counted(
             "calibrate_neighbors (2 samples, 4 clouds)",
             lambda: calibrate_neighbors.calibrate(
@@ -2266,7 +2406,7 @@ def diagnostics_phase(cfg, model, dev):
             wcfg = diagnose_hard_failures.with_window_rows0(cfg, wr)
             for seed in diagnose_hard_failures.SEEDS:
                 if wr == 4:
-                    with Capture(neighbors_mod, "window_select_idx", record=rec_wr4) as c:
+                    with Capture(neighbors_mod, "window_select_runs", record=rec_wr4) as c:
                         met = diagnose_hard_failures.diagnose_seed(model, wcfg, seed, dev)
                     cap_wr4.extend(c.calls)
                 else:
@@ -2289,16 +2429,35 @@ def diagnostics_phase(cfg, model, dev):
         ("window_select_idx:limit128", cap_128.calls, c_cal["window_select_idx"]),
         ("window_select_idx:window_rows0_4", cap_wr4, c_hard["window_select_idx"]),
     ):
-        calls = [c for c in calls if c is not None]
-        rows_k, tot = measure(name, calls, fused_select.window_select_idx,
-                              fused_select.window_select_plain, exact, window_select_topk,
-                              window_select_cost, "f32")
-        for row in rows_k:
-            log(row)
-        entries.append(kernel_entry(name, "gaussreg_tpu_torch/csrc/window_select.cu",
-                                    "gaussreg_tpu/ops/fused_select.py:145", launches, tot, "f32"))
+        entries.append(k1_phase(name, [c for c in calls if c is not None], launches))
     log(f"diagnostics phase: {time.perf_counter() - t_phase:.2f} s")
     return entries
+
+
+def main_path_pairs(cfg, model, pairs, dev):
+    """2. each held-out pair through api.coarse_register_clouds, its metrics
+    against the known transform; one line per pair."""
+    import torch
+    from gaussreg_tpu_torch import api
+    from gaussreg_tpu_torch.models.metrics import evaluate_registration
+
+    results = []
+    for i, (seed, (rp, rf, sp, sf, m)) in enumerate(pairs):
+        t_pair = time.perf_counter()
+        out = api.coarse_register_clouds(cfg, model, rp, rf, sp, sf, seed=i, device=dev,
+                                         transform=m)
+        b = out["batch"]
+        met = evaluate_registration(cfg, b.transform, out["estimated_transform"],
+                                    b.pyramid.points[0][1], b.pyramid.masks[0][1])
+        met = {k: float(v) for k, v in met.items()}
+        torch.cuda.synchronize()
+        met["seconds"] = time.perf_counter() - t_pair
+        met["search_overflow"] = int(b.pyramid.search_overflow)
+        results.append(met)
+        log(f"pair {seed}: RR={met['RR']:.0f} RRE={met['RRE']:.4f}deg RTE={met['RTE']:.5f} "
+            f"RSE={met['RSE']:.5f} RMSE={met['RMSE']:.5f} overflow={met['search_overflow']} "
+            f"seconds={met['seconds']:.3f}")
+    return results
 
 
 def main() -> int:
@@ -2332,10 +2491,7 @@ def main() -> int:
     from gaussreg_tpu_torch.gs.rasterizer import kernels as raster_mod
     from gaussreg_tpu_torch.models import kpconv as kpconv_mod
     from gaussreg_tpu_torch.models import matching as matching_mod
-    from gaussreg_tpu_torch.models.metrics import (
-        evaluate_registration,
-        isotropic_transform_error,
-    )
+    from gaussreg_tpu_torch.models.metrics import isotropic_transform_error
     from gaussreg_tpu_torch.models.registration import create_model
     from gaussreg_tpu_torch.ops import fused_select, kpconv_kernel, select_k
     from gaussreg_tpu_torch.ops import neighbors as neighbors_mod
@@ -2370,24 +2526,18 @@ def main() -> int:
     _cuda.reset_launch_counts()
     results = []
     t_all = time.perf_counter()
-    for i, (seed, (rp, rf, sp, sf, m)) in enumerate(pairs):
-        t_pair = time.perf_counter()
-        out = api.coarse_register_clouds(cfg, model, rp, rf, sp, sf, seed=i, device=dev,
-                                         transform=m)
-        b = out["batch"]
-        met = evaluate_registration(cfg, b.transform, out["estimated_transform"],
-                                    b.pyramid.points[0][1], b.pyramid.masks[0][1])
-        met = {k: float(v) for k, v in met.items()}
-        torch.cuda.synchronize()
-        met["seconds"] = time.perf_counter() - t_pair
-        met["search_overflow"] = int(b.pyramid.search_overflow)
-        results.append(met)
-        log(f"pair {seed}: RR={met['RR']:.0f} RRE={met['RRE']:.4f}deg RTE={met['RTE']:.5f} "
-            f"RSE={met['RSE']:.5f} RMSE={met['RMSE']:.5f} overflow={met['search_overflow']} "
-            f"seconds={met['seconds']:.3f}")
+    # K1 reads the windows in place: no gather, and no CUDA tensor reaches a
+    # plain version
+    with Capture(fused_select, "gather_windows") as c_gather, \
+            Capture(fused_select, "window_select_plain") as c_plain:
+        results = main_path_pairs(cfg, model, pairs, dev)
+    if c_gather.calls or c_plain.calls:
+        raise AssertionError(f"the main path gathered K1's windows {len(c_gather.calls)} times "
+                             f"and ran its plain version {len(c_plain.calls)} times")
     wall = time.perf_counter() - t_all
     counts = _cuda.launch_counts()
-    log(f"main path: {len(pairs)} pairs in {wall:.3f} s; launches {counts}")
+    log(f"main path: {len(pairs)} pairs in {wall:.3f} s; launches {counts}; K1 windows "
+        f"gathered 0 times")
     for name, n in per_pair.items():
         if counts[name] != n * len(pairs):
             raise AssertionError(f"{name}: {counts[name]} launches, expected {n} per pair")
@@ -2417,25 +2567,21 @@ def main() -> int:
 
     # 4. kernels against their plain versions, on one pair's captured calls
     seed, (rp, rf, sp, sf, m) = pairs[-1]
-    with Capture(neighbors_mod, "window_select_idx") as c1, \
+    with Capture(neighbors_mod, "window_select_runs") as c1, \
             Capture(kpconv_mod, "kpconv_fused_apply") as c2, \
             Capture(matching_mod, "kth_largest_rows_cols") as c3:
         api.coarse_register_clouds(cfg, model, rp, rf, sp, sf, seed=0, device=dev)
     torch.cuda.synchronize()
-    kernels = []
-    for name, calls, kernel, plain, compare, library, cost, kind, src, replaces in (
-        ("window_select_idx", c1.calls, fused_select.window_select_idx,
-         fused_select.window_select_plain, exact, window_select_topk, window_select_cost, "f32",
-         "gaussreg_tpu_torch/csrc/window_select.cu", "gaussreg_tpu/ops/fused_select.py:145"),
-        ("kpconv_fused_apply", c2.calls, kpconv_kernel.kpconv_fused_apply,
-         kpconv_kernel.reference_apply, within_bf16_step, kpconv_einsums, kpconv_cost, "bf16",
-         "gaussreg_tpu_torch/csrc/kpconv_fused.cu", "gaussreg_tpu/ops/kpconv_kernel.py:97"),
-    ):
-        rows, tot = measure(name, calls, kernel, plain, compare, library, cost, kind)
-        for row in rows:
-            log(row)
-        log(f"{name}: {len(calls)} calls per pair")
-        kernels.append(kernel_entry(name, src, replaces, main_counts[name], tot, kind))
+    kernels = [k1_phase("window_select_idx", c1.calls, main_counts["window_select_idx"])]
+    rows, tot = measure("kpconv_fused_apply", c2.calls, kpconv_kernel.kpconv_fused_apply,
+                        kpconv_kernel.reference_apply, within_bf16_step, kpconv_einsums,
+                        kpconv_cost, "bf16")
+    for row in rows:
+        log(row)
+    log(f"kpconv_fused_apply: {len(c2.calls)} calls per pair")
+    kernels.append(kernel_entry("kpconv_fused_apply", "gaussreg_tpu_torch/csrc/kpconv_fused.cu",
+                                "gaussreg_tpu/ops/kpconv_kernel.py:97",
+                                main_counts["kpconv_fused_apply"], tot, "bf16"))
     kernels += k3_phase(c3.calls, main_counts)
     kernels[1]["backward_ms"] = k2_backward_phase(c2.calls, dev)
     profile_pair(cfg, model, pairs[-1][1], dev)

@@ -15,10 +15,10 @@
 // 125.8 MB, 37.6 us at 3.35 TB/s; at the LGR shape (32 768, 128) 16.8 MB.
 //
 // Entry gaussreg_select_min_k_filter (any 0 < k <= W, any width; the routes
-// select_min_k and select_min_k_wide of ops/select_k.py): a threshold
-// filter over a row streamed once from device memory, after FAISS's
-// WarpSelect (Johnson, Douze and Jegou, "Billion-scale similarity search
-// with GPUs", 2017), with the merge done by warp reductions:
+// select_min_k and select_min_k_wide of ops/select_k.py): the threshold
+// filter of threshold_filter.cuh (lane queues in registers, rounds of two
+// redux.sync minima, a lane refilled by the whole warp; shared with K1,
+// window_select.cu) over a row streamed once from device memory:
 // - a row, or a slice of one, belongs to one warp, and nothing of it is
 //   staged in shared memory, so there is no width limit. Lane t reads
 //   columns t, t + 32, ... (4-byte loads, 4 * kUnroll in flight), or for
@@ -26,19 +26,6 @@
 //   flight): 16-byte loads put four neighbouring columns in one lane, and
 //   winners that sit together (a sentinel plateau, points in spatial
 //   order) would then empty one lane's queue again and again;
-// - each lane keeps the L smallest keys it has seen sorted in registers
-//   (its thread queue; L = 4 up to kSmallQueueMaxK, 8 up to
-//   kMidQueueMaxK, kLargeQueue past it); a key is compared once with the
-//   queue's last key and almost every key stops there;
-// - the warp then takes its smallest keys in rounds: two redux.sync minima
-//   (the keys' high words, then the low words of the lanes holding that
-//   high word) give the warp's smallest queue head, and the lane that
-//   owned it pops it. A lane that pops its last key having dropped keys is
-//   refilled by the whole warp: every lane reads every 32nd of that lane's
-//   columns (one load latency, not a walk of the lane's share), keeps the
-//   smallest kRefillQueue above the last key popped, and rounds hand the
-//   lane its next keys, up to L, stopping early where a lane of the refill
-//   runs dry having dropped keys. So the result is exact for any data;
 // - narrow rows: one warp per row, four rows per block, k rounds; round j's
 //   key waits in lane j % 32 and the warp stores 32 keys at once, so the
 //   form keeps no list and takes any k. Wide rows (the entry's `wide`):
@@ -59,8 +46,8 @@
 // (wide) rounds of two reductions and a pop of L register moves, and per
 // refill a re-read of the lane's share and up to L rounds. A lane pops
 // about k / 32 keys, so past k = 192 a longer queue trades refills for
-// dearer inserts and pops (kMidQueueMaxK, kLargeQueue: tools/select_variants.py
-// times copies of this file at each length).
+// dearer inserts and pops (kMidQueueMaxK, kLargeQueue in the header:
+// tools/select_variants.py times builds of copies at each length).
 //
 // Entry gaussreg_select_min_k_radix (the route select_min_k_radix of
 // ops/select_k.py, for large k where the row and its keys fit in kMaxSmem
@@ -107,7 +94,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "threshold_filter.cuh"
+
 namespace {
+
+using namespace threshold_filter;
 
 __device__ __forceinline__ uint32_t ordered_bits(float v) {
   const uint32_t u = __float_as_uint(v == 0.0f ? 0.0f : v);
@@ -118,14 +111,8 @@ __device__ __forceinline__ unsigned long long make_key(float v, unsigned pos) {
   return ((unsigned long long)ordered_bits(v) << 32) | pos;
 }
 
-// ---- the filter entry ----
+// ---- the filter entry (the filter itself: threshold_filter.cuh) ----
 
-constexpr unsigned long long kNone = ~0ull;  // the empty key, after every real key
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kSmallQueueMaxK = 48;  // L = 4 up to here
-constexpr int kMidQueueMaxK = 192;   // L = 8 up to here
-constexpr int kLargeQueue = 16;      // L past kMidQueueMaxK
-constexpr int kRefillQueue = 8;      // a refill's per-lane queue (at most L)
 constexpr int kUnroll = 2;           // 4-byte loads in flight per lane: 4 * kUnroll
 constexpr int kVecUnroll = 2;        // 16-byte loads in flight per lane
 constexpr int kVecMaxK = 4;          // 16-byte loads up to this k (with L = 4 = kVecMaxK)
@@ -133,92 +120,26 @@ constexpr int kBlockWarps = 4;       // a block's warps: four narrow rows or one
 constexpr int kMaxSmem = 200 * 1024;
 constexpr int kWideMaxK = kMaxSmem / (kBlockWarps * 8);  // the wide form's lists
 
-// A lane's thread queue: the L smallest keys it was offered, ascending
-// (kNone past them), and how many it was offered (counted by the caller):
-// more than L means some were dropped, all larger than k[L - 1].
-template <int L>
-struct LaneQueue {
-  unsigned long long k[L];
-  int seen;
-
-  __device__ __forceinline__ void reset() {
-#pragma unroll
-    for (int i = 0; i < L; ++i) k[i] = kNone;
-    seen = 0;
-  }
-
-  __device__ __forceinline__ void offer(unsigned long long key) {
-    if (key < k[L - 1]) {  // the filter: most keys stop here
-      unsigned long long t = key;
-#pragma unroll
-      for (int i = 0; i < L; ++i) {
-        const unsigned long long lo = t < k[i] ? t : k[i];
-        t = t < k[i] ? k[i] : t;
-        k[i] = lo;
-      }
-    }
-  }
-
-  __device__ __forceinline__ void pop() {
-#pragma unroll
-    for (int i = 0; i + 1 < L; ++i) k[i] = k[i + 1];
-    k[L - 1] = kNone;
-  }
-};
-
-// A lane's loads of one batch: kVecUnroll float4 (kVec: units are float4
-// indices) or 4 * kUnroll floats (units are columns), at units u, u + 32,
-// ... of a row, below u1.
+// The keys of a float row: unit u is column u (kVec false), or the float4
+// of columns 4u ... 4u + 3 (kVec: 16-byte loads, the row 16-byte aligned).
 template <bool kVec>
-struct Batch {
+struct RowSource {
   static constexpr int kUnits = kVec ? kVecUnroll : 4 * kUnroll;
-  float v[kVec ? 4 * kVecUnroll : 4 * kUnroll];
+  static constexpr int kPer = kVec ? 4 : 1;
+  using Value = typename std::conditional<kVec, float4, float>::type;
+  struct Cursor {};
+  const float* __restrict__ xr;
 
-  __device__ __forceinline__ void load(const float* __restrict__ xr, int u, int u1) {
-    if (kVec) {
-      const float4* x4 = reinterpret_cast<const float4*>(xr);
-#pragma unroll
-      for (int i = 0; i < kVecUnroll; ++i) {
-        float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (u + 32 * i < u1) t = __ldg(x4 + u + 32 * i);
-        v[4 * i] = t.x;
-        v[4 * i + 1] = t.y;
-        v[4 * i + 2] = t.z;
-        v[4 * i + 3] = t.w;
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < kUnits; ++i) v[i] = u + 32 * i < u1 ? __ldg(xr + u + 32 * i) : 0.f;
-    }
+  __device__ __forceinline__ Value load(Cursor&, int u, int d) const {
+    if constexpr (kVec) return __ldg(reinterpret_cast<const float4*>(xr) + u + d);
+    else return __ldg(xr + u + d);
   }
 
-  // Offer the batch's keys to q.
-  template <int L>
-  __device__ __forceinline__ void offer(int u, int u1, LaneQueue<L>& q) const {
-    constexpr int kPer = kVec ? 4 : 1;
-#pragma unroll
-    for (int i = 0; i < kUnits; ++i) {
-      if (u + 32 * i >= u1) continue;
-      q.seen += kPer;
-#pragma unroll
-      for (int j = 0; j < kPer; ++j)
-        q.offer(make_key(v[kPer * i + j], (unsigned)((u + 32 * i) * kPer + j)));
-    }
+  __device__ __forceinline__ unsigned long long key(const Value& v, int u, int j) const {
+    if constexpr (kVec) return make_key((&v.x)[j], (unsigned)(u * 4 + j));
+    else return make_key(v, (unsigned)u);
   }
 };
-
-// Offer this lane's keys of units [u0, u1) of row xr to q (lane t takes
-// units u0 + t, u0 + t + 32, ...). kVec: 16-byte loads, units are float4
-// indices (xr 16-byte aligned).
-template <int L, bool kVec>
-__device__ __forceinline__ void scan_lane(const float* __restrict__ xr, int u0, int u1,
-                                          int lane, LaneQueue<L>& q) {
-  for (int u = u0 + lane; u < u1; u += 32 * Batch<kVec>::kUnits) {
-    Batch<kVec> b;
-    b.load(xr, u, u1);
-    b.template offer<L>(u, u1, q);
-  }
-}
 
 // Number of keys of the ascending list a[0, n) below key.
 __device__ __forceinline__ int count_below(const unsigned long long* a, int n,
@@ -240,85 +161,8 @@ __device__ __forceinline__ float key_value(unsigned long long key, const float* 
   return bits ? __uint_as_float(bits) : xr[(unsigned)key];
 }
 
-// The warp's smallest key (kNone when every lane holds kNone): two
-// redux.sync minima, over the high words and then over the low words of
-// the lanes that hold that high word.
-__device__ __forceinline__ unsigned long long warp_min_key(unsigned long long key) {
-  const unsigned hi = (unsigned)(key >> 32);
-  const unsigned mh = __reduce_min_sync(kFull, hi);
-  const unsigned ml = __reduce_min_sync(kFull, hi == mh ? (unsigned)key : 0xffffffffu);
-  return ((unsigned long long)mh << 32) | ml;
-}
-
-// Lane `src` ran dry having dropped keys: the warp re-reads src's share of
-// columns [u0, u1) (columns u0 + src + 32 t), each lane every 32nd of them,
-// so one load latency instead of src's whole walk; each lane keeps its P
-// smallest keys above `floor`, and rounds hand src its next keys, L of
-// them unless a lane of the refill runs dry having dropped keys first
-// (its next key might then be below the other lanes' heads). src's count
-// is left above L exactly when its share holds keys past those handed.
-// (Only the 4-byte loads reach here: with 16-byte loads no lane can run
-// dry.)
-template <int L>
-__device__ __forceinline__ void refill(LaneQueue<L>& q, const float* __restrict__ xr, int u0,
-                                       int u1, int lane, int src, unsigned long long floor) {
-  constexpr int kLoads = 4;
-  constexpr int P = L < kRefillQueue ? L : kRefillQueue;
-  LaneQueue<P> part;
-  part.reset();
-  for (int u = u0 + src + 32 * lane; u < u1; u += kLoads * 32 * 32) {
-    float v[kLoads];
-#pragma unroll
-    for (int i = 0; i < kLoads; ++i) {
-      const int ui = u + 32 * 32 * i;
-      v[i] = ui < u1 ? __ldg(xr + ui) : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < kLoads; ++i) {
-      const int ui = u + 32 * 32 * i;
-      if (ui >= u1) continue;
-      const unsigned long long key = make_key(v[i], (unsigned)ui);
-      if (key > floor) {
-        ++part.seen;
-        part.offer(key);
-      }
-    }
-  }
-  const int seen = __reduce_add_sync(kFull, part.seen);
-  int given = L;  // uniform over the warp
-#pragma unroll
-  for (int i = 0; i < L; ++i) {
-    if (i < given) {
-      const unsigned long long best = warp_min_key(part.k[0]);
-      const bool won = best != kNone && part.k[0] == best;
-      if (won) part.pop();
-      if (lane == src) q.k[i] = best;
-      if (P < L && __any_sync(kFull, won && part.k[0] == kNone && part.seen > P)) given = i + 1;
-    }
-  }
-  if (lane == src) q.seen = seen + (L - given);
-}
-
-// One round: the warp's smallest queue head (kNone when every queue is
-// empty), popped by the lane that owned it. A lane that ran dry having
-// dropped keys (all above the popped one) is refilled, unless `last`.
-template <int L, bool kVec>
-__device__ __forceinline__ unsigned long long next_key(LaneQueue<L>& q, const float* xr, int u0,
-                                                       int u1, int lane, bool last) {
-  const unsigned long long best = warp_min_key(q.k[0]);
-  const bool won = best != kNone && q.k[0] == best;
-  if (won) q.pop();
-  // 16-byte loads are taken only for k <= kVecMaxK = L: a lane pops at
-  // most k keys, so it runs dry at most in the last round
-  if constexpr (!kVec) {
-    const unsigned dry = __ballot_sync(kFull, won && !last && q.k[0] == kNone && q.seen > L);
-    if (dry) refill<L>(q, xr, u0, u1, lane, __ffs(dry) - 1, best);
-  }
-  return best;
-}
-
-// Narrow rows: a block of kBlockWarps warps, a row each. Round j's key
-// waits in lane j % 32 until the warp stores 32 keys at once.
+// Narrow rows: a block of kBlockWarps warps, a row each (take_smallest:
+// round j's key waits in lane j % 32 until the warp stores 32 keys at once).
 template <int L, bool kVec>
 __global__ void __launch_bounds__(kBlockWarps * 32)
 select_narrow_kernel(const float* __restrict__ x, float* __restrict__ vals,
@@ -327,22 +171,16 @@ select_narrow_kernel(const float* __restrict__ x, float* __restrict__ vals,
   const long long row = (long long)blockIdx.x * kBlockWarps + (threadIdx.x >> 5);
   if (row >= num_rows) return;  // uniform over the warp; no block barrier below
   const float* xr = x + (size_t)row * w;
+  const RowSource<kVec> src{xr};
   const int units = kVec ? w >> 2 : w;
   LaneQueue<L> q;
   q.reset();
-  scan_lane<L, kVec>(xr, 0, units, lane, q);
-  unsigned long long mine = kNone;
-  for (int j = 0; j < k; ++j) {
-    const unsigned long long best = next_key<L, kVec>(q, xr, 0, units, lane, j + 1 == k);
-    if (lane == (j & 31)) mine = best;
-    if ((j & 31) == 31 || j + 1 == k) {
-      const int i = (j & ~31) + lane;
-      if (i <= j) {
-        vals[row * k + i] = key_value(mine, xr);
-        pos_out[row * k + i] = (int)(unsigned)mine;
-      }
-    }
-  }
+  scan_lane<L>(src, 0, units, lane, q);
+  // k <= W: the rounds never run out of keys, so no stop below kNone
+  take_smallest<L>(q, src, units, lane, k, kNone, [&](int i, unsigned long long key) {
+    vals[row * k + i] = key_value(key, xr);
+    pos_out[row * k + i] = (int)(unsigned)key;
+  });
 }
 
 // Wide rows: a block of kBlockWarps warps per row, a slice each; the
@@ -357,6 +195,7 @@ select_wide_kernel(const float* __restrict__ x, float* __restrict__ vals,
   const int lane = threadIdx.x & 31;
   const long long row = blockIdx.x;
   const float* xr = x + (size_t)row * w;
+  const RowSource<kVec> src{xr};
   const int units = kVec ? w >> 2 : w;  // of the row
   unsigned long long* list = lists + (size_t)warp * k;
   // this warp's slice [u0, u1) of the row
@@ -364,14 +203,14 @@ select_wide_kernel(const float* __restrict__ x, float* __restrict__ vals,
   const int u1 = u0 + units / kBlockWarps + (warp < units % kBlockWarps);
   LaneQueue<L> q;
   q.reset();
-  scan_lane<L, kVec>(xr, u0, u1, lane, q);
+  scan_lane<L>(src, u0, u1, lane, q);
   // A slice's first m = ceil(k / kBlockWarps) keys, over the row's slices,
   // are >= k keys: the largest of the slices' m-th keys bounds the row's
   // k-th, and a slice stops at its first key above that bound.
   const int m = (k + kBlockWarps - 1) / kBlockWarps;
   int j = 0;
   for (; j < m; ++j) {
-    const unsigned long long best = next_key<L, kVec>(q, xr, u0, u1, lane, j + 1 == k);
+    const unsigned long long best = next_key<L>(q, src, u0, u1, lane, j + 1 == k);
     if (lane == 0) list[j] = best;
   }
   if (lane == 0) bounds[warp] = list[m - 1];
@@ -379,7 +218,7 @@ select_wide_kernel(const float* __restrict__ x, float* __restrict__ vals,
   unsigned long long bound = 0;
   for (int o = 0; o < kBlockWarps; ++o) bound = max(bound, bounds[o]);
   for (; j < k; ++j) {
-    const unsigned long long best = next_key<L, kVec>(q, xr, u0, u1, lane, j + 1 == k);
+    const unsigned long long best = next_key<L>(q, src, u0, u1, lane, j + 1 == k);
     if (best > bound) break;  // uniform over the warp
     if (lane == 0) list[j] = best;
   }

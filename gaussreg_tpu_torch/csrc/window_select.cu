@@ -2,123 +2,216 @@
 // original-id extraction for the grid radius search.
 //
 // Replaces the Pallas TPU kernel gaussreg_tpu/ops/fused_select.py:
-// window_select_idx (_kernel). Same function, per query row p:
-//   d2[w]   = (x[w]-qx)^2 + (y[w]-qy)^2 + (z[w]-qz)^2, evaluated as
+// window_select_idx (_kernel). Same function, per query row p, over the
+// candidates (run r < nruns, offset o < wspan) at the run-major position
+// r * wspan + o:
+//   d2      = (x-qx)^2 + (y-qy)^2 + (z-qz)^2, evaluated as
 //             (dx*dx + dy*dy) + dz*dz in round-to-nearest with no FMA
 //             contraction, exactly as the plain version and the reference
-//   valid   = ls[run] <= off < le[run]  (run = w / wspan, off = w % wspan),
-//             compared as integers (the TPU kernel expands the bounds with a
-//             bf16 one-hot matmul, which is exact only for bounds <= 256)
+//   valid   = ls[r] <= o < le[r], compared as integers (the TPU kernel
+//             expands the bounds with a bf16 one-hot matmul, which is exact
+//             only for bounds <= 256)
 //   output  = the `limit` smallest valid d2, ascending, ties to the smaller
-//             flat (run-major) position, with widx[position]. Once the valid
-//             candidates are exhausted the TPU kernel emits (FLT_MAX,
-//             widx[0]); so does this one.
+//             position, with the original id at that position. Once the
+//             valid candidates are exhausted the TPU kernel emits (FLT_MAX,
+//             id at position 0); so does this one (also for a valid d2 of
+//             FLT_MAX, which the plain version's fill takes alike).
 //
-// Design: one warp per query row. Each candidate becomes a unique 64-bit
-// key (float_bits(d2) << 32) | position (d2 >= 0, so its bits order like
-// the float; masked candidates carry FLT_MAX's bits). Shared memory holds
-// the d2 bits only (the position is the index: nruns*wspan*4 bytes per
-// warp, 9 KB at 9 x 256). The candidate pass is unrolled 4 ways so each
-// lane keeps 12 loads in flight, and each lane keeps its four smallest keys
-// in registers; the `limit` selection rounds then cost a warp shuffle each,
-// with a re-scan of one lane's keys only when that lane has won four times
-// (warp_select.cuh). The unique position gives the exact tie order.
+// One kernel reads every candidate in place: candidate (p, r, o) lies at
+// row b * r_tot + wrow[p, r] of the (B, r_tot, cw) x/y/z planes and id
+// plane, plus o, with b = p / rows_per_batch.
+// - The grid search (ops/fused_select.py window_select_runs) passes its
+//   sorted planes and the padded order plane of ops/neighbors.py: the
+//   window of a run starts at the plane row that holds its first entry and
+//   spans wspan / cw rows. wrow <= nrow and r_tot = nrow + window_rows
+//   (neighbors.py _grid_runs), so a window never runs past the padded
+//   planes, and valid offsets lie below le <= wspan. The kernel traps on a
+//   window outside the planes (wrow < 0 or wrow + wspan / cw > r_tot), so
+//   a bad wrow fails loudly rather than reading out of bounds.
+// - The gathered (P, nruns * wspan) planes (window_select_idx, the JAX
+//   twin's signature) are the case B = 1, cw = wspan, r_tot = P * nruns,
+//   wrow[p, r] = p * nruns + r.
+// Positions are run-major (r * wspan + o), as those of the gathered
+// planes, so both give the same tie order and the same output.
 //
-// Bound on the card: the four (P, W) window planes are read once, so at the
-// level-0 self search (P = 61440, W = 2304) the kernel moves ~2.27 GB and
-// is bound by memory bandwidth (~0.68 ms at 3.35 TB/s).
+// Design: one warp per row, four rows per block, no shared memory. Only the
+// valid candidates are read: the runs' valid spans, laid end to end, are
+// the row's units, and lane t takes units t, t + 32, ... (a cursor steps
+// it from run to run; its loads of x, y and z, kUnits units at a time, are
+// in flight together). d2 and validity are computed in registers, and the
+// key (bits(d2) << 32) | position (d2 >= 0, so its bits order like the
+// float) goes to the threshold filter of threshold_filter.cuh, shared with
+// K3: a queue of L keys per lane (L by limit, as K3 chooses it), rounds of
+// two redux.sync minima, and a lane that runs dry having dropped keys
+// refilled by the whole warp, which re-reads that lane's candidates (from
+// L1/L2) and recomputes their d2. The unique position gives the exact tie
+// order. No staged row, so residency does not depend on W and no width is
+// refused.
+//
+// Bound on the card: in place, the queries, run bounds and window rows,
+// the sorted planes once per batch (about 1 MB at level 0: they stay in
+// the 50 MB L2) and the (P, limit) outputs; 8 f32 operations per valid
+// candidate. The candidates' reads come from L2, 16 bytes each.
 
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
 
-#include "warp_select.cuh"
+#include "threshold_filter.cuh"
 
 namespace {
 
-constexpr uint32_t kMaskedBits = 0x7F7FFFFFu;  // bits of FLT_MAX
-constexpr int kMaxSmem = 200 * 1024;
+using namespace threshold_filter;
 
-__global__ void window_select_kernel(
-    const float* __restrict__ q, int q_stride,
-    const int* __restrict__ lsle,
-    const float* __restrict__ wx, const float* __restrict__ wy,
-    const float* __restrict__ wz, const int* __restrict__ widx,
-    float* __restrict__ out_d2, int* __restrict__ out_idx,
-    int num_rows, int nruns, int wspan, int limit) {
-  extern __shared__ uint32_t smem_bits[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
-  if (row >= num_rows) return;  // no block-wide barrier below
-  const int w = nruns * wspan;
-  uint32_t* bits_s = smem_bits + (size_t)warp * w;  // key = bits << 32 | pos
+constexpr unsigned long long kStop = 0x7F7FFFFFull << 32;  // FLT_MAX's bits: no more valid
+constexpr int kBlockWarps = 4;
 
-  const float qx = q[row * q_stride + 0];
-  const float qy = q[row * q_stride + 1];
-  const float qz = q[row * q_stride + 2];
-  const int* bounds = lsle + row * 2 * nruns;
-  const size_t base = (size_t)row * w;
+// The keys of one query row's window candidates (see the header comment).
+struct WindowSource {
+  static constexpr int kUnits = 4;  // units a lane loads at once: 12 loads in flight
+  static constexpr int kPer = 1;
+  struct Value {
+    float x, y, z;
+    unsigned pos;
+  };
+  // A lane's place in the run spans: units [end - len, end) of run `run`
+  // lie at plane offsets addr + u and positions pos + u.
+  struct Cursor {
+    int run = -1, end = 0, pos = 0;
+    long long addr = 0;
+  };
 
-  warp_select::LaneTop4 top;
-#pragma unroll 4
-  for (int pos = lane; pos < w; pos += 32) {
-    const int run = pos / wspan;
-    const int off = pos - run * wspan;
-    const float dx = __fsub_rn(wx[base + pos], qx);
-    const float dy = __fsub_rn(wy[base + pos], qy);
-    const float dz = __fsub_rn(wz[base + pos], qz);
+  const float* __restrict__ x;
+  const float* __restrict__ y;
+  const float* __restrict__ z;
+  const int* __restrict__ ids;
+  const int* __restrict__ bounds;  // the row's ls[nruns] | le[nruns]
+  const int* __restrict__ wrow;    // the row's first window rows
+  long long base;                  // b * r_tot * cw: the row's batch
+  int cw, nruns, wspan;            // cw: the planes' row width
+  int last_row;                    // r_tot - wspan / cw: the last window start
+  float qx, qy, qz;
+
+  __device__ __forceinline__ long long run_base(int r) const {
+    return base + (long long)__ldg(wrow + r) * cw;
+  }
+  // run r's valid offsets [lo, lo + len), as the plain version's compares give them
+  __device__ __forceinline__ int lo(int r) const { return max(__ldg(bounds + r), 0); }
+  __device__ __forceinline__ int len(int r, int l) const {
+    return max(min(__ldg(bounds + nruns + r), wspan) - l, 0);
+  }
+
+  // The row's valid candidates (uniform over the warp). Traps on a
+  // window outside the planes.
+  __device__ __forceinline__ int units(int lane) const {
+    int n = 0;
+    for (int r = lane; r < nruns; r += 32) {
+      const int w = __ldg(wrow + r);
+      if (w < 0 || w > last_row) __trap();
+      n += len(r, lo(r));
+    }
+    return __reduce_add_sync(kFull, n);
+  }
+
+  __device__ __forceinline__ Value load(Cursor& c, int u0, int d) const {
+    const int u = u0 + d;
+    while (u >= c.end) {
+      ++c.run;
+      const int l = lo(c.run);
+      c.addr = run_base(c.run) + l - c.end;
+      c.pos = c.run * wspan + l - c.end;
+      c.end += len(c.run, l);
+    }
+    const long long a = c.addr + u;
+    return {__ldg(x + a), __ldg(y + a), __ldg(z + a), (unsigned)(c.pos + u)};
+  }
+
+  __device__ __forceinline__ unsigned long long key(const Value& v, int, int) const {
+    const float dx = __fsub_rn(v.x, qx);
+    const float dy = __fsub_rn(v.y, qy);
+    const float dz = __fsub_rn(v.z, qz);
     const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                                __fmul_rn(dz, dz));
-    const bool valid = off >= bounds[run] && off < bounds[nruns + run];
-    const uint32_t bits = valid ? __float_as_uint(d2) : kMaskedBits;
-    bits_s[pos] = bits;
-    top.insert(((unsigned long long)bits << 32) | (unsigned)pos);
+    return ((unsigned long long)__float_as_uint(d2) << 32) | v.pos;
   }
-  __syncwarp();
 
-  const auto key_at = [bits_s](int pos) {
-    return ((unsigned long long)bits_s[pos] << 32) | (unsigned)pos;
-  };
-  const int fill_idx = widx[base];
-  int j = 0;
-  for (; j < limit; ++j) {
-    const unsigned long long best = warp_select::next_smallest(top, lane, w, key_at);
-    if (best == warp_select::kNone || (uint32_t)(best >> 32) == kMaskedBits) break;
-    if (lane == 0) {
-      const int pos = (int)(best & 0xffffffffu);
-      out_d2[row * limit + j] = __uint_as_float((uint32_t)(best >> 32));
-      out_idx[row * limit + j] = widx[base + pos];
+  // The original id at a run-major position.
+  __device__ __forceinline__ int id_at(unsigned pos) const {
+    const int r = (int)(pos / (unsigned)wspan);
+    return __ldg(ids + run_base(r) + (pos - (unsigned)r * wspan));
+  }
+};
+
+template <int L>
+__global__ void __launch_bounds__(kBlockWarps * 32)
+window_select_kernel(const float* __restrict__ q, int q_stride, const int* __restrict__ lsle,
+                     const int* __restrict__ wrow, const float* __restrict__ x,
+                     const float* __restrict__ y, const float* __restrict__ z,
+                     const int* __restrict__ ids, float* __restrict__ out_d2,
+                     int* __restrict__ out_idx, int num_rows, int rows_per_batch, int r_tot,
+                     int cw, int nruns, int wspan, int limit) {
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * kBlockWarps + (threadIdx.x >> 5);
+  if (row >= num_rows) return;  // uniform over the warp; no block barrier below
+  const float* qr = q + row * q_stride;
+  const WindowSource src{x, y, z, ids, lsle + row * 2 * nruns, wrow + row * nruns,
+                         (row / rows_per_batch) * r_tot * (long long)cw, cw, nruns, wspan,
+                         r_tot - wspan / cw, __ldg(qr), __ldg(qr + 1), __ldg(qr + 2)};
+  const int units = src.units(lane);
+  LaneQueue<L> queue;
+  queue.reset();
+  scan_lane<L>(src, 0, units, lane, queue);
+  float* d2r = out_d2 + row * limit;
+  int* idxr = out_idx + row * limit;
+  const int taken = take_smallest<L>(queue, src, units, lane, limit, kStop,
+                                     [&](int i, unsigned long long key) {
+                                       d2r[i] = __uint_as_float((uint32_t)(key >> 32));
+                                       idxr[i] = src.id_at((unsigned)key);
+                                     });
+  if (taken < limit) {
+    const int fill = src.id_at(0);
+    for (int i = taken + lane; i < limit; i += 32) {
+      d2r[i] = FLT_MAX;
+      idxr[i] = fill;
     }
   }
-  for (int jj = j + lane; jj < limit; jj += 32) {
-    out_d2[row * limit + jj] = FLT_MAX;
-    out_idx[row * limit + jj] = fill_idx;
-  }
+}
+
+template <int L>
+int launch(const float* q, int q_stride, const int* lsle, const int* wrow, const float* x,
+           const float* y, const float* z, const int* ids, float* out_d2, int* out_idx,
+           int num_rows, int rows_per_batch, int r_tot, int cw, int nruns, int wspan, int limit,
+           cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((num_rows + kBlockWarps - 1) / kBlockWarps);
+  window_select_kernel<L><<<blocks, kBlockWarps * 32, 0, stream>>>(
+      q, q_stride, lsle, wrow, x, y, z, ids, out_d2, out_idx, num_rows, rows_per_batch, r_tot, cw,
+      nruns, wspan, limit);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int gaussreg_window_select(
-    const float* q, int q_stride, const int* lsle, const float* wx,
-    const float* wy, const float* wz, const int* widx, float* out_d2,
-    int* out_idx, int num_rows, int nruns, int wspan, int limit,
-    void* stream) {
-  const long long w = (long long)nruns * wspan;
-  const long long row_bytes = w * 4;
-  if (num_rows <= 0 || w <= 0 || limit <= 0 || row_bytes > kMaxSmem) {
+// The entry (see the header comment): wrow (num_rows, nruns), x/y/z/ids
+// the (B, r_tot, cw) planes, num_rows = B * rows_per_batch, wspan a
+// multiple of cw. Lane queues as K3 takes them: L = 4 up to limit kSmallQueueMaxK, 8 up to kMidQueueMaxK, then
+// kLargeQueue.
+extern "C" int gaussreg_window_select(const float* q, int q_stride, const int* lsle,
+                                      const int* wrow, const float* x, const float* y,
+                                      const float* z, const int* ids, float* out_d2,
+                                      int* out_idx, int num_rows, int rows_per_batch, int r_tot,
+                                      int cw, int nruns, int wspan, int limit, void* stream) {
+  if (!wrow || num_rows <= 0 || nruns <= 0 || wspan <= 0 || limit <= 0 || q_stride < 3 ||
+      (long long)nruns * wspan > 0x7fffffffll || rows_per_batch <= 0 ||
+      num_rows % rows_per_batch != 0 || r_tot <= 0 || cw <= 0 || wspan % cw != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  int warps = 8;
-  while (warps > 1 && warps * row_bytes > kMaxSmem) --warps;
-  const size_t smem = (size_t)warps * row_bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      window_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (num_rows + warps - 1) / warps;
-  window_select_kernel<<<blocks, warps * 32, smem, (cudaStream_t)stream>>>(
-      q, q_stride, lsle, wx, wy, wz, widx, out_d2, out_idx, num_rows, nruns,
-      wspan, limit);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (limit <= kSmallQueueMaxK)
+    return launch<4>(q, q_stride, lsle, wrow, x, y, z, ids, out_d2, out_idx, num_rows,
+                     rows_per_batch, r_tot, cw, nruns, wspan, limit, s);
+  if (limit <= kMidQueueMaxK)
+    return launch<8>(q, q_stride, lsle, wrow, x, y, z, ids, out_d2, out_idx, num_rows,
+                     rows_per_batch, r_tot, cw, nruns, wspan, limit, s);
+  return launch<kLargeQueue>(q, q_stride, lsle, wrow, x, y, z, ids, out_d2, out_idx, num_rows,
+                             rows_per_batch, r_tot, cw, nruns, wspan, limit, s);
 }

@@ -5,12 +5,13 @@ into its own shared library (one library for all the entry points of a
 source) with a plain C interface, loaded with ctypes:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o _build/<stem>-<hash>.so csrc/<stem>.cu
+         -Xcompiler -fPIC -I csrc -o _build/<stem>-<hash>.so csrc/<stem>.cu
 
 Libraries are built at first use (or all at once, in parallel, by
 `build_all`) into gaussreg_tpu_torch/_build/, which .gitignore lists; the
-file name carries a hash of the source and the csrc/*.cuh headers, so an
-edited kernel is rebuilt.
+file name carries a hash of the source and the headers it may include
+(csrc/*.cuh, and those beside a copy built from elsewhere), so an edited
+kernel is rebuilt.
 Nothing is compiled or imported when this module is imported.
 
 Every C entry point returns the cudaError_t of its launch
@@ -64,8 +65,11 @@ class CudaKernel:
     @property
     def lib_path(self) -> str:
         h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-        headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
-        for path in [self.source, *headers]:  # a source may include any header
+        # a source may include any header of its own directory or, failing
+        # that, of csrc/ (a copy built from elsewhere: `build_command`'s -I)
+        dirs = sorted({os.path.dirname(self.source), CSRC})
+        headers = sorted(p for d in dirs for p in glob.glob(os.path.join(d, "*.cuh")))
+        for path in [self.source, *headers]:
             with open(path, "rb") as f:
                 h.update(f.read())
         digest = h.hexdigest()
@@ -73,7 +77,7 @@ class CudaKernel:
         return os.path.join(BUILD_DIR, f"{stem}-{digest[:12]}.so")
 
     def build_command(self, out_path: str) -> List[str]:
-        return [_nvcc(), *NVCC_FLAGS, "-o", out_path, self.source]
+        return [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", out_path, self.source]
 
     def _load(self):
         if self._fn is None:

@@ -13,13 +13,15 @@ Grid-run pruned (`grid_radius_search`):
 Supports are sorted by a linear cell key (cell == radius, z in the low bits)
 so each query's 27-cell neighborhood is nine contiguous z-runs. Per query:
 nine range probes (torch.searchsorted on the sorted keys; the JAX package
-ranks them by a merge sort), aligned 128-entry window gathers covering each
-run, and a selection of the nearest `limit` candidates inside the runs.
-Exact nearest-`limit` within the radius when no run overflows its window;
-`overflow` counts run entries beyond the gathered windows.
+ranks them by a merge sort), an aligned window of 128-entry plane rows
+covering each run, and a selection of the nearest `limit` candidates inside
+the runs. Exact nearest-`limit` within the radius when no run overflows its
+window; `overflow` counts run entries beyond the windows.
 
-Selection branches: "auto" and "fused" run `window_select_idx` (the CUDA
-kernel K1 on CUDA tensors, its plain version on CPU tensors); "pallas",
+Selection branches: "auto" and "fused" run `window_select_runs` (the CUDA
+kernel K1 on CUDA tensors, reading each query's runs in place from the
+sorted planes, so no (B*M, nruns * wspan) window plane is made; its plain
+version, which gathers them, on CPU tensors); "pallas",
 the JAX package's legacy branch, runs `select_min_k` (K3) over each
 query's (nruns * wspan) window distances and decodes the flat positions to
 run and offset; "topk" is the JAX package's two-stage top-k branch, kept
@@ -32,7 +34,7 @@ from typing import NamedTuple
 
 import torch
 
-from gaussreg_tpu_torch.ops.fused_select import window_select_idx
+from gaussreg_tpu_torch.ops.fused_select import window_select_runs
 from gaussreg_tpu_torch.ops.select_k import select_min_k
 
 _BIG = 1e12
@@ -90,22 +92,10 @@ def gather_padded(values: torch.Tensor, indices: torch.Tensor, fill=0.0) -> torc
                                                  device=values.device), out)
 
 
-class FusedWindows(NamedTuple):
-    """Inputs of the fused window selection for one search."""
-
-    q_xyz: torch.Tensor  # (B*M, 3) f32
-    lsle: torch.Tensor  # (B*M, 2*nruns) int32 local window starts | ends
-    win_x: torch.Tensor  # (B*M, nruns*wspan) f32
-    win_y: torch.Tensor
-    win_z: torch.Tensor
-    win_idx: torch.Tensor  # (B*M, nruns*wspan) int32 original support ids
-    nruns: int
-    wspan: int
-
-
 class _Runs(NamedTuple):
     order: torch.Tensor  # (B, N) int64 support permutation (sorted by cell)
     planes: tuple  # 3 x (B, R, CW) f32 sorted coordinate planes, far-padded
+    order_plane: torch.Tensor  # (B, R, CW) int32 the permutation as a plane, zero-padded
     wrow: torch.Tensor  # (B, M, nruns) first window row of each run
     starts: torch.Tensor  # (B, M, nruns) int32 run start in sorted order
     ends: torch.Tensor  # (B, M, nruns) int32 run end (== start if dead)
@@ -153,6 +143,9 @@ def _grid_runs(q_points, s_points, q_mask, s_mask, radius, window_rows, cell_fac
         pa = torch.where(svalid, pa, big)
         pa = torch.cat([pa, pa.new_full((b, lpad - n), big)], dim=1)
         planes.append(pa.reshape(b, r_tot, _CW))
+    order_plane = torch.cat(
+        [order.to(torch.int32), torch.zeros((b, lpad - n), dtype=torch.int32, device=dev)], dim=1
+    ).reshape(b, r_tot, _CW)
 
     if cell_factor == 1.0:
         # radius-sized cells: 3x3 xy-neighborhood -> 9 z-runs per query
@@ -204,44 +197,18 @@ def _grid_runs(q_points, s_points, q_mask, s_mask, radius, window_rows, cell_fac
     wrow = torch.div(starts, _CW, rounding_mode="floor")
     wend = wrow * _CW + wspan
     overflow = torch.clamp_min(ends - wend, 0).sum().to(torch.int32)
-    return _Runs(order, tuple(planes), wrow, starts, ends, nruns, overflow)
+    return _Runs(order, tuple(planes), order_plane, wrow, starts, ends, nruns, overflow)
 
 
-def _fused_windows(q_points, runs: _Runs, window_rows: int) -> FusedWindows:
-    b, m = q_points.shape[:2]
-    n = runs.order.shape[1]
-    nruns = runs.nruns
-    wspan = window_rows * _CW
-    r_tot = runs.planes[0].shape[1]
-    dev = q_points.device
-    base = runs.wrow.reshape(b, m * nruns) + (
-        torch.arange(b, dtype=torch.int32, device=dev) * r_tot
-    )[:, None]
-    ridx = (
-        base[:, :, None] + torch.arange(window_rows, dtype=torch.int32, device=dev)
-    ).reshape(-1).long()
-
-    def win_gather(plane):
-        # (b*m*nruns*wr, cw) -> (b*m, nruns*wr*cw): run-major, offset-minor
-        return plane.reshape(b * r_tot, _CW)[ridx].reshape(b * m, -1)
-
-    order_pad = torch.cat(
-        [runs.order.to(torch.int32),
-         torch.zeros((b, r_tot * _CW - n), dtype=torch.int32, device=dev)],
-        dim=1,
-    ).reshape(b, r_tot, _CW)
-    ls = (runs.starts - runs.wrow * _CW).reshape(b * m, nruns)
-    le = torch.clamp(runs.ends - runs.wrow * _CW, 0, wspan).reshape(b * m, nruns)
-    return FusedWindows(
-        q_xyz=q_points.reshape(b * m, 3).contiguous(),
-        lsle=torch.cat([ls, le], dim=1).to(torch.int32).contiguous(),
-        win_x=win_gather(runs.planes[0]),
-        win_y=win_gather(runs.planes[1]),
-        win_z=win_gather(runs.planes[2]),
-        win_idx=win_gather(order_pad),
-        nruns=nruns,
-        wspan=wspan,
-    )
+def _window_bounds(runs: _Runs, wspan: int):
+    """Per query row (B*M rows): its runs' starts | ends local to their
+    windows, (B*M, 2*nruns) int32, and the windows' first plane rows,
+    (B*M, nruns) int32: the in-place window selection's inputs."""
+    b, m, nruns = runs.wrow.shape
+    ls = runs.starts - runs.wrow * _CW
+    le = torch.clamp(runs.ends - runs.wrow * _CW, 0, wspan)
+    lsle = torch.cat([ls, le], dim=2).reshape(b * m, 2 * nruns).to(torch.int32)
+    return lsle.contiguous(), runs.wrow.reshape(b * m, nruns).to(torch.int32).contiguous()
 
 
 def _row_window_gather(src, rows, nrows: int):
@@ -280,10 +247,10 @@ def grid_radius_search(
     wspan = window_rows * _CW
 
     if select_kernel in ("auto", "fused"):
-        fw = _fused_windows(q_points, runs, window_rows)
-        d2_sel, idx = window_select_idx(
-            fw.q_xyz, fw.lsle, fw.win_x, fw.win_y, fw.win_z, fw.win_idx, limit,
-            nruns=fw.nruns, wspan=fw.wspan,
+        lsle, wrow = _window_bounds(runs, wspan)
+        d2_sel, idx = window_select_runs(
+            q_points.reshape(b * m, 3).contiguous(), lsle, wrow, *runs.planes, runs.order_plane,
+            limit, nruns=runs.nruns, wspan=wspan,
         )
         d2_sel = d2_sel.reshape(b, m, limit)
         idx = idx.reshape(b, m, limit)

@@ -45,7 +45,9 @@ and summed; the points' table is the ground for RADIX_*. The defaults
 take about an hour on the card: pick --ks and --rows.
 
 --source: other copies of csrc/select_k.cu (say with another kLargeQueue,
-the lane queue's length past k = 192), each built into its own library
+the lane queue's length past k = 192, in threshold_filter.cuh: a copy
+takes the header beside it before the shipped one; or a parent commit's
+select_k.cu), each built into its own library
 and its entries timed beside the shipped build's, in every set and at
 every sweep point, under `narrow@<stem>`, `wide@<stem>` and
 `radix@<stem>`; their calls are held bit for bit as well.

@@ -5,8 +5,9 @@ where there is no CUDA card. On a machine with one:
 
     python -m pytest -q -m cuda tests/test_torch_port_cuda.py
 
-K1 and K3 must equal their plain versions index for index and value for
-value (K3's fused thresholds bit for bit), K6 bit for bit; K2 must lie
+K1 (both its entries: gathered windows and windows read in place from the
+sorted planes) and K3 must equal their plain versions index for index and
+value for value (K3's fused thresholds bit for bit), K6 bit for bit; K2 must lie
 within 4e-3 of the plain output's max magnitude (one bf16 rounding step of
 a weighted sum, 2^-8 relative), and its backward's gradients must equal
 those of the plain version's autograd bit for bit.
@@ -48,6 +49,109 @@ def test_window_select_kernel_matches_plain(cuda, limit):
     assert fs.KERNEL.launches == before + 1
     assert torch.equal(idx_k, idx_p)
     assert torch.equal(d2_k, d2_p)
+
+
+def _runs_case(dev, seed, nruns, window_rows, rows_per_batch, span):
+    """In-place K1 inputs on two batches of sorted planes: lattice
+    coordinates (ties), windows that end at the planes' padded end, rows
+    with no valid candidate and rows with only a few."""
+    rng = np.random.default_rng(seed)
+    b, wspan = 2, window_rows * 128
+    r_tot = window_rows + 3
+    p = b * rows_per_batch
+    lat = lambda *s: torch.from_numpy(rng.integers(0, 8, size=s) / 8.0).float().to(dev)
+    px, py, pz = (lat(b, r_tot, 128) for _ in range(3))
+    pidx = torch.from_numpy(rng.integers(0, 10**6, size=(b, r_tot, 128))).int().to(dev)
+    wrow = rng.integers(0, r_tot - window_rows + 1, size=(p, nruns))
+    wrow[::5] = r_tot - window_rows  # windows that end at the padded end
+    ls = rng.integers(0, 128, size=(p, nruns))
+    le = np.minimum(ls + rng.integers(0, span + 1, size=(p, nruns)), wspan)
+    le[:3] = ls[:3]  # no valid candidate
+    le[3:6, 1:] = ls[3:6, 1:]  # fewer valid candidates than most limits
+    lsle = torch.from_numpy(np.concatenate([ls, le], 1)).int().to(dev)
+    return lat(p, 3), lsle, torch.from_numpy(wrow).int().to(dev), px, py, pz, pidx, wspan
+
+
+@pytest.mark.parametrize("limit", [1, 4, 35, 128, 300])
+@pytest.mark.parametrize("window_rows,rows_per_batch", [(1, 300), (2, 300), (4, 200), (5, 200),
+                                                         (48, 40)])
+def test_window_select_runs_kernel_matches_plain(cuda, limit, window_rows, rows_per_batch):
+    """K1 in place (W = 9 x 128 x window_rows: 1 152, 2 304, 4 608, 5 760,
+    and 55 296, past the 51 200 columns the staged-row design refused) and
+    the gathered entry on the same windows: both equal to the plain version
+    index for index and value for value, each one launch of the one
+    counter."""
+    from gaussreg_tpu_torch.ops import fused_select as fs
+
+    nruns = 9
+    q, lsle, wrow, px, py, pz, pidx, wspan = _runs_case(
+        cuda, limit * 100 + window_rows, nruns, window_rows, rows_per_batch,
+        span=min(window_rows * 128, window_rows * 64 + limit))
+    before = fs.KERNEL.launches
+    d2_k, idx_k = fs.window_select_runs(q, lsle, wrow, px, py, pz, pidx, limit, nruns, wspan)
+    torch.cuda.synchronize()
+    assert fs.KERNEL.launches == before + 1
+    d2_p, idx_p = fs.window_select_runs_plain(q, lsle, wrow, px, py, pz, pidx, limit, nruns,
+                                              wspan)
+    assert torch.equal(idx_k, idx_p)
+    assert torch.equal(d2_k, d2_p)
+    wins = fs.gather_windows(wrow, px, py, pz, pidx, wspan)
+    d2_g, idx_g = fs.window_select_idx(q, lsle, *wins, limit, nruns, wspan)
+    torch.cuda.synchronize()
+    assert fs.KERNEL.launches == before + 2
+    assert torch.equal(idx_g, idx_p)
+    assert torch.equal(d2_g, d2_p)
+
+
+def test_window_select_runs_rejects_bad_input(cuda):
+    from gaussreg_tpu_torch.ops import fused_select as fs
+
+    q, lsle, wrow, px, py, pz, pidx, wspan = _runs_case(cuda, 0, 9, 2, 10, 50)
+    with pytest.raises(ValueError):  # a window span that is not whole plane rows
+        fs.window_select_runs(q, lsle, wrow, px, py, pz, pidx, 4, 9, wspan - 56)
+    with pytest.raises(ValueError):  # int64 window rows
+        fs.window_select_runs(q, lsle, wrow.long(), px, py, pz, pidx, 4, 9, wspan)
+    with pytest.raises(ValueError):  # a CPU plane beside CUDA queries
+        fs.window_select_runs(q, lsle, wrow, px.cpu(), py, pz, pidx, 4, 9, wspan)
+
+
+_TRAP_SCRIPT = """
+import sys
+import torch
+from gaussreg_tpu_torch.ops import fused_select as fs
+dev, b, r_tot, cw, nruns, m = torch.device("cuda"), 2, 5, 128, 9, 8
+wspan = 2 * cw  # window_rows = 2: the last window start is 3
+planes = [torch.zeros(b, r_tot, cw, device=dev) for _ in range(3)]
+ids = torch.zeros(b, r_tot, cw, dtype=torch.int32, device=dev)
+lsle = torch.zeros(b * m, 2 * nruns, dtype=torch.int32, device=dev)
+lsle[:, nruns:] = wspan
+wrow = torch.zeros(b * m, nruns, dtype=torch.int32, device=dev)
+wrow[-1, -1] = int(sys.argv[1])
+fs.window_select_runs(torch.zeros(b * m, 3, device=dev), lsle, wrow, *planes, ids, 4, nruns,
+                      wspan)
+try:
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("raised:", e)
+    sys.exit(3)
+print("no error")
+"""
+
+
+@pytest.mark.parametrize("row,code", [(3, 0), (4, 3), (-1, 3)])
+def test_window_select_runs_traps_on_a_window_outside_the_planes(cuda, row, code):
+    """A window row whose window leaves the planes traps the kernel, so the
+    next synchronisation raises (in a process of its own: the trap loses
+    the CUDA context); the last valid start runs."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    proc = subprocess.run([sys.executable, "-c", _TRAP_SCRIPT, str(row)], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == code, proc.stdout + proc.stderr
 
 
 @pytest.mark.parametrize("c,d", [(4, 64), (32, 32), (64, 64), (128, 128), (256, 256), (512, 512), (24, 40), (64, 1024)])

@@ -4,7 +4,9 @@ the JAX package's Pallas kernels run in interpret mode on the same inputs
 
 - K1 window_select_idx and K3 select_min_k: index-for-index and
   value-for-value (tolerance 0): both sides compute the same f32 d2 with
-  the same operation order, and ties go to the smaller position.
+  the same operation order, and ties go to the smaller position. K1's
+  in-place entry window_select_runs likewise, against the Pallas kernel on
+  windows gathered from the same sorted planes.
 - K2 kpconv_fused_apply: bf16 products are exact in f32 on both sides, but
   the f32 sums over the neighbor slots run in another order, so a weighted
   sum can round to the neighbouring bf16 value (one step = 2^-8 relative).
@@ -15,6 +17,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+
+torch.set_num_threads(2)  # several xdist workers share the cores
 
 
 def _windows(seed, p=64, nruns=9, wspan=128):
@@ -49,6 +53,78 @@ def test_window_select_plain_matches_pallas(seed, limit):
     )
     np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_j))
     np.testing.assert_array_equal(d2_t.numpy(), np.asarray(d2_j))
+
+
+def _sorted_planes(seed, b, m, nruns, window_rows, extra_rows=3):
+    """Two batches of sorted (B, r_tot, 128) planes on a coarse lattice
+    (ties), the padded order plane, and per query its runs' window rows and
+    local bounds: windows that end at the planes' padded end, rows with no
+    valid candidate and rows with fewer than most limits."""
+    rng = np.random.default_rng(seed)
+    wspan = window_rows * 128
+    r_tot = window_rows + extra_rows
+    planes = [(rng.integers(0, 8, size=(b, r_tot, 128)) / 8.0).astype(np.float32)
+              for _ in range(3)]
+    order = rng.integers(0, 5000, size=(b, r_tot, 128)).astype(np.int32)
+    q = np.zeros((b * m, 8), np.float32)
+    q[:, :3] = rng.integers(0, 8, size=(b * m, 3)) / 8.0
+    wrow = rng.integers(0, r_tot - window_rows + 1, size=(b * m, nruns)).astype(np.int32)
+    wrow[::4] = r_tot - window_rows  # windows that end at the padded end
+    ls = rng.integers(0, 128, size=(b * m, nruns))
+    le = np.minimum(ls + rng.integers(0, wspan, size=(b * m, nruns)), wspan)
+    le[:3] = ls[:3]  # no valid candidate
+    le[3:7, 1:] = np.minimum(ls[3:7, 1:] + 1, wspan)  # a few valid candidates
+    lsle = np.concatenate([ls, le], axis=1).astype(np.int32)
+    return q, lsle, wrow, planes, order, wspan
+
+
+@pytest.mark.parametrize("seed,limit,window_rows,nruns",
+                         [(0, 35, 2, 9), (1, 4, 1, 9), (2, 60, 2, 4), (3, 1, 1, 4)])
+def test_window_select_runs_matches_pallas(seed, limit, window_rows, nruns):
+    """K1 in place on the CPU (its plain version: the windows gathered from
+    the sorted planes, then the selection) against the Pallas kernel run
+    interpreted on windows gathered from the same planes as the JAX grid
+    search gathers them (one whole-row gather per plane)."""
+    from gaussreg_tpu.ops.fused_select import window_select_idx as jax_select
+    from gaussreg_tpu_torch.ops.fused_select import window_select_runs
+
+    b, m = 2, 70
+    q, lsle, wrow, planes, order, wspan = _sorted_planes(seed, b, m, nruns, window_rows)
+    r_tot = planes[0].shape[1]
+    base = wrow + (np.arange(b * m) // m * r_tot)[:, None]
+    ridx = (base[:, :, None] + np.arange(window_rows)).reshape(-1)
+    gather = lambda plane: jnp.asarray(plane).reshape(b * r_tot, 128)[ridx].reshape(b * m, -1)
+    d2_j, idx_j = jax_select(
+        jnp.asarray(q), jnp.asarray(lsle), *(gather(pl) for pl in (*planes, order)), limit,
+        nruns=nruns, wspan=wspan, interpret=True,
+    )
+    t = torch.from_numpy
+    d2_t, idx_t = window_select_runs(
+        t(q[:, :3].copy()), t(lsle), t(wrow), *(t(pl) for pl in planes), t(order), limit,
+        nruns, wspan,
+    )
+    np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_j))
+    np.testing.assert_array_equal(d2_t.numpy(), np.asarray(d2_j))
+    assert (d2_t.numpy()[:3] == np.finfo(np.float32).max).all()  # the rows with no candidate
+
+
+@pytest.mark.parametrize("bad", [-1, 4])
+def test_window_select_runs_rejects_a_window_outside_the_planes(bad):
+    """A window row below 0 or one whose window ends past the planes' r_tot
+    rows (here r_tot = 5, window_rows = 2: the last start is 3) raises on
+    the CPU, where the gather would read another batch's rows or fail."""
+    from gaussreg_tpu_torch.ops.fused_select import window_select_runs
+
+    q, lsle, wrow, planes, order, wspan = _sorted_planes(0, 2, 8, 9, 2)
+    assert planes[0].shape[1] == 5
+    t = torch.from_numpy
+    ok = window_select_runs(t(q[:, :3].copy()), t(lsle), t(wrow), *(t(pl) for pl in planes),
+                            t(order), 4, 9, wspan)
+    assert ok[0].shape == (16, 4)
+    wrow[-1, -1] = bad
+    with pytest.raises(ValueError, match="outside the planes"):
+        window_select_runs(t(q[:, :3].copy()), t(lsle), t(wrow), *(t(pl) for pl in planes),
+                           t(order), 4, 9, wspan)
 
 
 @pytest.mark.parametrize(

@@ -11,6 +11,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+torch.set_num_threads(2)  # several xdist workers share the cores
+
 
 def _clouds(seed, b=2, n=900, dense=0):
     rng = np.random.default_rng(seed)
@@ -67,6 +69,50 @@ def test_grid_radius_search_matches_jax(seed, dense, window_rows, radius, limit)
             assert int(of) == int(ref_of)
     if dense:
         assert int(ref_of) > 0  # the truncated-window case really truncates
+
+
+@pytest.mark.parametrize("seed,dense,limit", [(5, 0, 60), (6, 500, 35)])
+def test_grid_radius_search_three_row_windows_match_jax_topk(seed, dense, limit):
+    """3-row windows (wspan = 384): the JAX fused kernel expands run bounds
+    past 256 through bf16 (inexact), so the port, whose K1 compares the
+    bounds as integers, is held against the JAX package's exact two-stage
+    top-k branch."""
+    pts, mask = _clouds(seed, dense=dense)
+    j, p = _search_both(pts, pts, mask, mask, 0.2, limit, 3)
+    ref_idx, ref_of = (np.asarray(x) for x in j["topk"])
+    for kern in ("auto", "topk"):
+        idx, of = p[kern]
+        np.testing.assert_array_equal(idx.numpy(), ref_idx)
+        assert int(of) == int(ref_of)
+
+
+def test_grid_radius_search_auto_reads_windows_in_place(monkeypatch):
+    """The auto branch selects through K1's in-place entry (one call per
+    search, its windows addressed in the sorted planes), not through the
+    gathered entry."""
+    from gaussreg_tpu_torch.ops import fused_select
+    from gaussreg_tpu_torch.ops import neighbors
+
+    calls = []
+    orig = neighbors.window_select_runs
+
+    def counted(*args, **kw):
+        calls.append(args)
+        return orig(*args, **kw)
+
+    def refuse(*args, **kw):
+        raise AssertionError("the gathered entry ran")
+
+    monkeypatch.setattr(neighbors, "window_select_runs", counted)
+    monkeypatch.setattr(fused_select, "window_select_idx", refuse)
+    pts, mask = _clouds(7, n=500)
+    t = torch.from_numpy
+    idx, _ = neighbors.grid_radius_search(t(pts), t(pts), t(mask), t(mask), 0.15, 16)
+    assert len(calls) == 1 and idx.shape == (2, 500, 16)
+    q, lsle, wrow, px = calls[0][:4]
+    r_tot = px.shape[1]
+    assert px.shape == (2, r_tot, 128) and wrow.shape == (1000, 9) and lsle.shape == (1000, 18)
+    assert int(wrow.max()) + 2 <= r_tot  # every window inside the padded planes
 
 
 def test_grid_radius_search_cell_factor_two_matches_jax():
