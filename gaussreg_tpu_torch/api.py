@@ -18,6 +18,7 @@ import torch
 from gaussreg_tpu_torch.config import Config, make_cfg
 from gaussreg_tpu_torch.data.pipeline import make_pair_batch
 from gaussreg_tpu_torch.device import DeviceLike, resolve_device
+from gaussreg_tpu_torch.engine.debug import annotate
 from gaussreg_tpu_torch.gs.cameras import find_cameras_json, load_cameras_json
 from gaussreg_tpu_torch.gs.extract import (
     adjust_point_cloud_volume,
@@ -47,17 +48,19 @@ def coarse_register_clouds(
 ) -> Dict:
     """Run the coarse model on already-normalized clouds. Returns the output
     dict with 'estimated_transform' in the normalized frame, plus the built
-    'batch'. `transform` (the GT, when known) rides along in the batch."""
-    dev = resolve_device(device)
-    batch = make_pair_batch(
-        cfg, ref_points, ref_feats, src_points, src_feats, transform, device=dev
-    )
-    generator = torch.Generator(device=dev)
-    generator.manual_seed(seed)
-    with torch.no_grad():
-        out = model(batch, generator)
-    out["batch"] = batch
-    return out
+    'batch'. `transform` (the GT, when known) rides along in the batch.
+    The call is the span `coarse_call`; its layers' spans nest inside it."""
+    with annotate("coarse_call"):
+        dev = resolve_device(device)
+        batch = make_pair_batch(
+            cfg, ref_points, ref_feats, src_points, src_feats, transform, device=dev
+        )
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(seed)
+        with torch.no_grad():
+            out = model(batch, generator)
+        out["batch"] = batch
+        return out
 
 
 def register_gs_pair(

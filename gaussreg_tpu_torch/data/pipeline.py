@@ -15,6 +15,7 @@ import torch
 
 from gaussreg_tpu_torch.config import Config
 from gaussreg_tpu_torch.device import DeviceLike, resolve_device
+from gaussreg_tpu_torch.engine.debug import annotate
 from gaussreg_tpu_torch.ops.neighbors import grid_radius_search
 from gaussreg_tpu_torch.ops.subsample import grid_subsample, spatial_sort
 
@@ -50,24 +51,28 @@ def build_pyramid(
     grid subsample at voxel_size * 2^l, each level kept in Morton order;
     self-neighbors at radius init_radius * 2^l capped at neighbor_limits[l];
     subsampling and upsampling lists between adjacent levels (upsampling at
-    twice the radius, 4 wide)."""
+    twice the radius, 4 wide). Each sort, subsample and search is a span
+    `pair_batch.{sort,subsample}.<level>`, `pair_batch.search.{self,down,up}.<level>`."""
     if not num_stages == len(levels) == len(neighbor_limits):
         raise ValueError("num_stages, levels and neighbor_limits disagree")
 
-    points, mask, perm0 = _per_cloud(
-        lambda p, m: spatial_sort(p, m, init_voxel_size), points, mask
-    )
+    with annotate("pair_batch.sort.0"):
+        points, mask, perm0 = _per_cloud(
+            lambda p, m: spatial_sort(p, m, init_voxel_size), points, mask
+        )
     pts = [points]
     msks = [mask]
     nvox = [mask.sum(dim=-1).to(torch.int32)]
     voxel = init_voxel_size
     for lvl in range(1, num_stages):
         voxel = voxel * 2.0
-        p, m, nv = _per_cloud(
-            lambda pp, mm: grid_subsample(pp, mm, voxel, capacity=levels[lvl]),
-            pts[-1], msks[-1],
-        )
-        p, m, _ = _per_cloud(lambda pp, mm: spatial_sort(pp, mm, voxel), p, m)
+        with annotate(f"pair_batch.subsample.{lvl}"):
+            p, m, nv = _per_cloud(
+                lambda pp, mm: grid_subsample(pp, mm, voxel, capacity=levels[lvl]),
+                pts[-1], msks[-1],
+            )
+        with annotate(f"pair_batch.sort.{lvl}"):
+            p, m, _ = _per_cloud(lambda pp, mm: spatial_sort(pp, mm, voxel), p, m)
         pts.append(p)
         msks.append(m)
         nvox.append(nv)
@@ -77,23 +82,26 @@ def build_pyramid(
     radius = init_radius
     for lvl in range(num_stages):
         rows = window_rows0 if lvl == 0 else 2
-        nbr, of = grid_radius_search(
-            pts[lvl], pts[lvl], msks[lvl], msks[lvl], radius,
-            neighbor_limits[lvl], window_rows=rows,
-        )
+        with annotate(f"pair_batch.search.self.{lvl}"):
+            nbr, of = grid_radius_search(
+                pts[lvl], pts[lvl], msks[lvl], msks[lvl], radius,
+                neighbor_limits[lvl], window_rows=rows,
+            )
         neighbors.append(nbr)
         overflow = overflow + of
         if lvl < num_stages - 1:
-            sub, of = grid_radius_search(
-                pts[lvl + 1], pts[lvl], msks[lvl + 1], msks[lvl], radius,
-                neighbor_limits[lvl], window_rows=rows,
-            )
+            with annotate(f"pair_batch.search.down.{lvl}"):
+                sub, of = grid_radius_search(
+                    pts[lvl + 1], pts[lvl], msks[lvl + 1], msks[lvl], radius,
+                    neighbor_limits[lvl], window_rows=rows,
+                )
             subsampling.append(sub)
             overflow = overflow + of
-            up, of = grid_radius_search(
-                pts[lvl], pts[lvl + 1], msks[lvl], msks[lvl + 1],
-                radius * 2.0, min(4, neighbor_limits[lvl + 1]),
-            )
+            with annotate(f"pair_batch.search.up.{lvl}"):
+                up, of = grid_radius_search(
+                    pts[lvl], pts[lvl + 1], msks[lvl], msks[lvl + 1],
+                    radius * 2.0, min(4, neighbor_limits[lvl + 1]),
+                )
             upsampling.append(up)
             overflow = overflow + of
         radius = radius * 2.0
@@ -174,25 +182,29 @@ def make_pair_batch(
     transform=None,
     device: DeviceLike = None,
 ) -> PairBatch:
-    """Build a PairBatch from host numpy clouds on `device` (default cuda)."""
-    dev = resolve_device(device)
-    cap0 = cfg.capacity.levels[0]
-    rp, rf, rm = pad_cloud(ref_points, ref_features, cap0)
-    sp, sf, sm = pad_cloud(src_points, src_features, cap0)
-    points = torch.from_numpy(np.stack([rp, sp])).to(dev)
-    feats = torch.from_numpy(np.stack([rf, sf])).to(dev)
-    masks = torch.from_numpy(np.stack([rm, sm])).to(dev)
-    pyramid = build_pyramid(
-        points,
-        masks,
-        cfg.backbone.init_voxel_size,
-        cfg.backbone.init_radius,
-        cfg.capacity.levels,
-        cfg.capacity.neighbor_limits,
-        cfg.backbone.num_stages,
-        window_rows0=cfg.capacity.window_rows0,
-    )
-    # level-0 points were Morton-sorted: apply the permutation to the features
-    feats = torch.gather(feats, 1, pyramid.perm0[:, :, None].expand(-1, -1, feats.shape[2]))
-    t = np.eye(4, dtype=np.float32) if transform is None else np.asarray(transform, np.float32)
-    return PairBatch(pyramid, feats, torch.from_numpy(t).to(dev))
+    """Build a PairBatch from host numpy clouds on `device` (default cuda),
+    in the span `pair_batch` (the padding and the clouds' copies to the
+    device in `pair_batch.upload`, then build_pyramid's spans)."""
+    with annotate("pair_batch"):
+        dev = resolve_device(device)
+        cap0 = cfg.capacity.levels[0]
+        with annotate("pair_batch.upload"):
+            rp, rf, rm = pad_cloud(ref_points, ref_features, cap0)
+            sp, sf, sm = pad_cloud(src_points, src_features, cap0)
+            points = torch.from_numpy(np.stack([rp, sp])).to(dev)
+            feats = torch.from_numpy(np.stack([rf, sf])).to(dev)
+            masks = torch.from_numpy(np.stack([rm, sm])).to(dev)
+        pyramid = build_pyramid(
+            points,
+            masks,
+            cfg.backbone.init_voxel_size,
+            cfg.backbone.init_radius,
+            cfg.capacity.levels,
+            cfg.capacity.neighbor_limits,
+            cfg.backbone.num_stages,
+            window_rows0=cfg.capacity.window_rows0,
+        )
+        # level-0 points were Morton-sorted: apply the permutation to the features
+        feats = torch.gather(feats, 1, pyramid.perm0[:, :, None].expand(-1, -1, feats.shape[2]))
+        t = np.eye(4, dtype=np.float32) if transform is None else np.asarray(transform, np.float32)
+        return PairBatch(pyramid, feats, torch.from_numpy(t).to(dev))

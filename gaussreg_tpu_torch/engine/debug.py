@@ -50,6 +50,15 @@ def profile_trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """A named span in the profile (torch.profiler.record_function)."""
-    return torch.profiler.record_function(name)
+    """The program's one way to open a named span: a
+    torch.profiler.record_function range while a profiler records (so that
+    the span lands in the same trace as the device's events), else a
+    shared null context. The gate costs ~0.1 us; a record_function costs
+    ~10 us even with no profiler running."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN

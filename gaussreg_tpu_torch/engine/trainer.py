@@ -40,6 +40,7 @@ import torch
 from gaussreg_tpu_torch.config import Config
 from gaussreg_tpu_torch.data.pipeline import PairBatch
 from gaussreg_tpu_torch.device import DeviceLike, resolve_device
+from gaussreg_tpu_torch.engine.debug import annotate
 from gaussreg_tpu_torch.models.losses import overall_loss
 from gaussreg_tpu_torch.models.metrics import evaluate_registration, inlier_ratio
 from gaussreg_tpu_torch.models.registration import GaussRegModel
@@ -287,7 +288,8 @@ def make_train_step(model: GaussRegModel, cfg: Config, tx: Optimizer):
     backward and before the guard, so that every rank takes the same
     decision and applies the same update; the metrics are reduced in one
     flat tensor (global means, the global sum of vox_overflow). Without
-    one, nothing is communicated."""
+    one, nothing is communicated. Spans: `loss` (a pair's), `backward`,
+    `optimizer`."""
 
     def train_step(state: TrainState, batches: Sequence[PairBatch],
                    generators: Sequence[torch.Generator]) -> Tuple[TrainState, Dict[str, Any]]:
@@ -299,16 +301,19 @@ def make_train_step(model: GaussRegModel, cfg: Config, tx: Optimizer):
         aux = []
         for batch, generator in zip(batches, generators):
             out = model(batch, generator, train=True, with_transform=False)
-            losses = dict(overall_loss(cfg, out, batch.transform))
+            with annotate("loss"):
+                losses = dict(overall_loss(cfg, out, batch.transform))
             losses["PIR"] = _coarse_precision(cfg, out)
             losses["vox_overflow"] = _voxel_overflow(cfg, batch)
             aux.append(losses)
         loss = torch.stack([a["loss"] for a in aux]).mean()
-        loss.backward()
+        with annotate("backward"):
+            loss.backward()
         grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
                  for n, p in params.items()}
         all_reduce_mean_(grads.values())
-        opt_state, finite = apply_gradients(tx, params, state.opt_state, grads)
+        with annotate("optimizer"):
+            opt_state, finite = apply_gradients(tx, params, state.opt_state, grads)
         for p in params.values():
             p.grad = None
         mean = lambda key: torch.stack([a[key].detach().float() for a in aux]).mean()

@@ -11,6 +11,7 @@ import torch
 from torch import nn
 
 from gaussreg_tpu_torch.data.pipeline import Pyramid
+from gaussreg_tpu_torch.engine.debug import annotate
 from gaussreg_tpu_torch.models import initializers as init
 from gaussreg_tpu_torch.models.kpconv import (
     ConvBlock,
@@ -58,48 +59,56 @@ class KPConvFPN(nn.Module):
                 module.reset_parameters(generator)
 
     def forward(self, feats: torch.Tensor, pyramid: Pyramid):
+        """Spans: `backbone.geometry`, `backbone.encoder1`-`5`, `backbone.decoder`."""
         pts, msk = pyramid.points, pyramid.masks
         nbr, sub, up = pyramid.neighbors, pyramid.subsampling, pyramid.upsampling
 
-        if self.shared_geometry:
-            # one (influence, count) per neighbor list, shared by every conv
-            # on it (all convs share the deterministic kernel disposition)
-            kp0 = torch.from_numpy(kernel_points(self.kernel_size)).to(feats.device)
-            r, s = self.init_radius, self.init_sigma
-            geo_n = [
-                kpconv_geometry(pts[l], pts[l], nbr[l], kp0 * (r * 2**l), s * 2**l)
-                for l in range(5)
-            ]
-            geo_s = [
-                kpconv_geometry(pts[l + 1], pts[l], sub[l], kp0 * (r * 2**l), s * 2**l)
-                for l in range(4)
-            ]
-        else:
-            geo_n, geo_s = [None] * 5, [None] * 4
+        with annotate("backbone.geometry"):
+            if self.shared_geometry:
+                # one (influence, count) per neighbor list, shared by every conv
+                # on it (all convs share the deterministic kernel disposition)
+                kp0 = torch.from_numpy(kernel_points(self.kernel_size)).to(feats.device)
+                r, s = self.init_radius, self.init_sigma
+                geo_n = [
+                    kpconv_geometry(pts[l], pts[l], nbr[l], kp0 * (r * 2**l), s * 2**l)
+                    for l in range(5)
+                ]
+                geo_s = [
+                    kpconv_geometry(pts[l + 1], pts[l], sub[l], kp0 * (r * 2**l), s * 2**l)
+                    for l in range(4)
+                ]
+            else:
+                geo_n, geo_s = [None] * 5, [None] * 4
 
-        x1 = self.encoder1_1(feats, pts[0], pts[0], nbr[0], msk[0], geo_n[0])
-        x1 = self.encoder1_2(x1, pts[0], pts[0], nbr[0], msk[0], msk[0], geo_n[0])
+        with annotate("backbone.encoder1"):
+            x1 = self.encoder1_1(feats, pts[0], pts[0], nbr[0], msk[0], geo_n[0])
+            x1 = self.encoder1_2(x1, pts[0], pts[0], nbr[0], msk[0], msk[0], geo_n[0])
 
-        x2 = self.encoder2_1(x1, pts[1], pts[0], sub[0], msk[1], msk[0], geo_s[0])
-        x2 = self.encoder2_2(x2, pts[1], pts[1], nbr[1], msk[1], msk[1], geo_n[1])
-        x2 = self.encoder2_3(x2, pts[1], pts[1], nbr[1], msk[1], msk[1], geo_n[1])
+        with annotate("backbone.encoder2"):
+            x2 = self.encoder2_1(x1, pts[1], pts[0], sub[0], msk[1], msk[0], geo_s[0])
+            x2 = self.encoder2_2(x2, pts[1], pts[1], nbr[1], msk[1], msk[1], geo_n[1])
+            x2 = self.encoder2_3(x2, pts[1], pts[1], nbr[1], msk[1], msk[1], geo_n[1])
 
-        x3 = self.encoder3_1(x2, pts[2], pts[1], sub[1], msk[2], msk[1], geo_s[1])
-        x3 = self.encoder3_2(x3, pts[2], pts[2], nbr[2], msk[2], msk[2], geo_n[2])
-        x3 = self.encoder3_3(x3, pts[2], pts[2], nbr[2], msk[2], msk[2], geo_n[2])
+        with annotate("backbone.encoder3"):
+            x3 = self.encoder3_1(x2, pts[2], pts[1], sub[1], msk[2], msk[1], geo_s[1])
+            x3 = self.encoder3_2(x3, pts[2], pts[2], nbr[2], msk[2], msk[2], geo_n[2])
+            x3 = self.encoder3_3(x3, pts[2], pts[2], nbr[2], msk[2], msk[2], geo_n[2])
 
-        x4 = self.encoder4_1(x3, pts[3], pts[2], sub[2], msk[3], msk[2], geo_s[2])
-        x4 = self.encoder4_2(x4, pts[3], pts[3], nbr[3], msk[3], msk[3], geo_n[3])
-        x4 = self.encoder4_3(x4, pts[3], pts[3], nbr[3], msk[3], msk[3], geo_n[3])
+        with annotate("backbone.encoder4"):
+            x4 = self.encoder4_1(x3, pts[3], pts[2], sub[2], msk[3], msk[2], geo_s[2])
+            x4 = self.encoder4_2(x4, pts[3], pts[3], nbr[3], msk[3], msk[3], geo_n[3])
+            x4 = self.encoder4_3(x4, pts[3], pts[3], nbr[3], msk[3], msk[3], geo_n[3])
 
-        x5 = self.encoder5_1(x4, pts[4], pts[3], sub[3], msk[4], msk[3], geo_s[3])
-        x5 = self.encoder5_2(x5, pts[4], pts[4], nbr[4], msk[4], msk[4], geo_n[4])
-        x5 = self.encoder5_3(x5, pts[4], pts[4], nbr[4], msk[4], msk[4], geo_n[4])
+        with annotate("backbone.encoder5"):
+            x5 = self.encoder5_1(x4, pts[4], pts[3], sub[3], msk[4], msk[3], geo_s[3])
+            x5 = self.encoder5_2(x5, pts[4], pts[4], nbr[4], msk[4], msk[4], geo_n[4])
+            x5 = self.encoder5_3(x5, pts[4], pts[4], nbr[4], msk[4], msk[4], geo_n[4])
 
-        l4 = torch.cat([nearest_upsample(x5, up[3]), x4], dim=-1)
-        l4 = self.decoder4(l4, msk[3])
-        l3 = torch.cat([nearest_upsample(l4, up[2]), x3], dim=-1)
-        l3 = self.decoder3(l3, msk[2])
-        l2 = torch.cat([nearest_upsample(l3, up[1]), x2], dim=-1)
-        feats_f = self.decoder2(l2)
+        with annotate("backbone.decoder"):
+            l4 = torch.cat([nearest_upsample(x5, up[3]), x4], dim=-1)
+            l4 = self.decoder4(l4, msk[3])
+            l3 = torch.cat([nearest_upsample(l4, up[2]), x3], dim=-1)
+            l3 = self.decoder3(l3, msk[2])
+            l2 = torch.cat([nearest_upsample(l3, up[1]), x2], dim=-1)
+            feats_f = self.decoder2(l2)
         return feats_f, x5

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from gaussreg_tpu_torch.engine.debug import annotate
 from gaussreg_tpu_torch.models import initializers as init
 from gaussreg_tpu_torch.models.transformer import (
     RPEConditionalTransformer,
@@ -98,11 +99,14 @@ class GeometricTransformer(nn.Module):
         init.dense_(self.out_proj, generator)
 
     def forward(self, ref_points, src_points, ref_feats, src_feats, ref_mask, src_mask):
-        ref_embed = self.embedding(ref_points, ref_mask)
-        src_embed = self.embedding(src_points, src_mask)
+        """Spans: `transformer.embedding` (both clouds), `transformer.layers`."""
+        with annotate("transformer.embedding"):
+            ref_embed = self.embedding(ref_points, ref_mask)
+            src_embed = self.embedding(src_points, src_mask)
         ref_f = self.in_proj(ref_feats)
         src_f = self.in_proj(src_feats)
-        ref_f, src_f = self.transformer(
-            ref_f, src_f, ref_embed, src_embed, ref_mask, src_mask
-        )
+        with annotate("transformer.layers"):
+            ref_f, src_f = self.transformer(
+                ref_f, src_f, ref_embed, src_embed, ref_mask, src_mask
+            )
         return self.out_proj(ref_f), self.out_proj(src_f)

@@ -19,6 +19,7 @@ from torch import nn
 from gaussreg_tpu_torch.config import Config
 from gaussreg_tpu_torch.data.pipeline import PairBatch
 from gaussreg_tpu_torch.device import DeviceLike, resolve_device
+from gaussreg_tpu_torch.engine.debug import annotate
 from gaussreg_tpu_torch.models.backbone import KPConvFPN
 from gaussreg_tpu_torch.models.geotransformer import GeometricTransformer
 from gaussreg_tpu_torch.models import initializers as init
@@ -76,7 +77,8 @@ class GaussRegModel(nn.Module):
     ) -> Dict[str, Any]:
         """The JAX model's forward and its branches. `generator` (of the
         batch's device) draws the GT pairs' Gumbel noise under `train` and
-        then RANSAC's hypotheses under `with_transform`."""
+        then RANSAC's hypotheses under `with_transform`. Each stage is a
+        span (engine/debug.py `annotate`) of the stage's name."""
         cfg = self.cfg
         pyr = batch.pyramid
         out: Dict[str, Any] = {}
@@ -84,25 +86,28 @@ class GaussRegModel(nn.Module):
         points_c, masks_c = pyr.points[-1], pyr.masks[-1]
         nf = points_f.shape[1]
 
-        parts = [
-            point_to_node_partition(
-                points_f[i], points_c[i], masks_f[i], masks_c[i],
-                cfg.model.num_points_in_patch,
+        with annotate("partition"):
+            parts = [
+                point_to_node_partition(
+                    points_f[i], points_c[i], masks_f[i], masks_c[i],
+                    cfg.model.num_points_in_patch,
+                )
+                for i in range(2)
+            ]
+            p2n = [p[0] for p in parts]
+            node_masks = torch.stack([p[1] for p in parts])
+            node_knn_indices = torch.stack([p[2] for p in parts])
+            node_knn_masks = torch.stack([p[3] for p in parts])
+            node_knn_points = batched_gather(points_f, node_knn_indices, fill=0.0)
+
+        with annotate("backbone"):
+            feats_f, feats_c = self.backbone(batch.features, pyr)
+
+        with annotate("transformer"):
+            ref_feats_c, src_feats_c = self.transformer(
+                points_c[0:1], points_c[1:2], feats_c[0:1], feats_c[1:2],
+                masks_c[0:1], masks_c[1:2],
             )
-            for i in range(2)
-        ]
-        p2n = [p[0] for p in parts]
-        node_masks = torch.stack([p[1] for p in parts])
-        node_knn_indices = torch.stack([p[2] for p in parts])
-        node_knn_masks = torch.stack([p[3] for p in parts])
-        node_knn_points = batched_gather(points_f, node_knn_indices, fill=0.0)
-
-        feats_f, feats_c = self.backbone(batch.features, pyr)
-
-        ref_feats_c, src_feats_c = self.transformer(
-            points_c[0:1], points_c[1:2], feats_c[0:1], feats_c[1:2],
-            masks_c[0:1], masks_c[1:2],
-        )
         ref_feats_c, src_feats_c = ref_feats_c[0], src_feats_c[0]
         # rsqrt(sum^2 + eps): a norm's gradient is NaN at the masked nodes'
         # exactly-zero rows
@@ -119,71 +124,79 @@ class GaussRegModel(nn.Module):
 
         node_pair_valid = node_masks[0][:, None] & node_masks[1][None, :]
         if train or with_gt_overlaps:
-            overlaps = node_overlap_matrix(
-                points_f[0], points_f[1], masks_f[0], masks_f[1], p2n[0], p2n[1],
-                _patch_membership(node_knn_indices[0], node_knn_masks[0], nf),
-                _patch_membership(node_knn_indices[1], node_knn_masks[1], nf),
-                node_knn_masks[0].sum(dim=-1), node_knn_masks[1].sum(dim=-1),
-                points_c.shape[1], points_c.shape[1],
-                batch.transform, cfg.model.ground_truth_matching_radius,
-            )
-            out["gt_node_overlaps"] = torch.where(node_pair_valid, overlaps, 0.0)
+            with annotate("gt_overlaps"):
+                overlaps = node_overlap_matrix(
+                    points_f[0], points_f[1], masks_f[0], masks_f[1], p2n[0], p2n[1],
+                    _patch_membership(node_knn_indices[0], node_knn_masks[0], nf),
+                    _patch_membership(node_knn_indices[1], node_knn_masks[1], nf),
+                    node_knn_masks[0].sum(dim=-1), node_knn_masks[1].sum(dim=-1),
+                    points_c.shape[1], points_c.shape[1],
+                    batch.transform, cfg.model.ground_truth_matching_radius,
+                )
+                out["gt_node_overlaps"] = torch.where(node_pair_valid, overlaps, 0.0)
 
         # proposals from features without gradient
-        ref_idx_prop, src_idx_prop, _, prop_valid = superpoint_matching(
-            ref_feats_c_norm.detach(), src_feats_c_norm.detach(), node_masks[0], node_masks[1],
-            cfg.coarse_matching.num_correspondences,
-            cfg.coarse_matching.dual_normalization,
-        )
+        with annotate("matching"):
+            ref_idx_prop, src_idx_prop, _, prop_valid = superpoint_matching(
+                ref_feats_c_norm.detach(), src_feats_c_norm.detach(), node_masks[0],
+                node_masks[1], cfg.coarse_matching.num_correspondences,
+                cfg.coarse_matching.dual_normalization,
+            )
         out["ref_node_corr_indices"] = ref_idx_prop
         out["src_node_corr_indices"] = src_idx_prop
         out["node_corr_valid"] = prop_valid
 
         if train:  # sampled GT node pairs take the place of the proposals
-            ref_idx, src_idx, _, sel_valid = sample_gt_node_correspondences(
-                generator, out["gt_node_overlaps"], node_pair_valid,
-                cfg.coarse_matching.num_targets, cfg.coarse_matching.overlap_threshold,
-            )
+            with annotate("gt_sampling"):
+                ref_idx, src_idx, _, sel_valid = sample_gt_node_correspondences(
+                    generator, out["gt_node_overlaps"], node_pair_valid,
+                    cfg.coarse_matching.num_targets, cfg.coarse_matching.overlap_threshold,
+                )
         else:
             ref_idx, src_idx, sel_valid = ref_idx_prop, src_idx_prop, prop_valid
 
-        ref_knn_pts = node_knn_points[0][ref_idx]  # (P, K, 3)
-        src_knn_pts = node_knn_points[1][src_idx]
-        ref_knn_msk = node_knn_masks[0][ref_idx] & sel_valid[:, None]
-        src_knn_msk = node_knn_masks[1][src_idx] & sel_valid[:, None]
-        ref_knn_feats = batched_gather(feats_f[0:1], node_knn_indices[0][ref_idx][None], fill=0.0)[0]
-        src_knn_feats = batched_gather(feats_f[1:2], node_knn_indices[1][src_idx][None], fill=0.0)[0]
-        out["ref_node_corr_knn_points"] = ref_knn_pts
-        out["src_node_corr_knn_points"] = src_knn_pts
-        out["ref_node_corr_knn_masks"] = ref_knn_msk
-        out["src_node_corr_knn_masks"] = src_knn_msk
+        with annotate("patch_scores"):
+            ref_knn_pts = node_knn_points[0][ref_idx]  # (P, K, 3)
+            src_knn_pts = node_knn_points[1][src_idx]
+            ref_knn_msk = node_knn_masks[0][ref_idx] & sel_valid[:, None]
+            src_knn_msk = node_knn_masks[1][src_idx] & sel_valid[:, None]
+            ref_knn_feats = batched_gather(
+                feats_f[0:1], node_knn_indices[0][ref_idx][None], fill=0.0)[0]
+            src_knn_feats = batched_gather(
+                feats_f[1:2], node_knn_indices[1][src_idx][None], fill=0.0)[0]
+            out["ref_node_corr_knn_points"] = ref_knn_pts
+            out["src_node_corr_knn_points"] = src_knn_pts
+            out["ref_node_corr_knn_masks"] = ref_knn_msk
+            out["src_node_corr_knn_masks"] = src_knn_msk
 
-        c = feats_f.shape[-1]
-        matching_scores = torch.einsum("pkc,plc->pkl", ref_knn_feats, src_knn_feats)
-        matching_scores = matching_scores / torch.sqrt(
-            torch.tensor(float(c), device=matching_scores.device)
-        )
-        matching_scores = log_optimal_transport(
-            matching_scores, ref_knn_msk, src_knn_msk, self.ot_alpha,
-            cfg.model.num_sinkhorn_iterations,
-        )
+            c = feats_f.shape[-1]
+            matching_scores = torch.einsum("pkc,plc->pkl", ref_knn_feats, src_knn_feats)
+            matching_scores = matching_scores / torch.sqrt(
+                torch.tensor(float(c), device=matching_scores.device)
+            )
+        with annotate("sinkhorn"):
+            matching_scores = log_optimal_transport(
+                matching_scores, ref_knn_msk, src_knn_msk, self.ot_alpha,
+                cfg.model.num_sinkhorn_iterations,
+            )
         out["matching_scores"] = matching_scores
 
         if not with_transform:
             return out
         fm = cfg.fine_matching
-        lgr = local_to_global_registration(
-            ref_knn_pts, src_knn_pts, ref_knn_msk, src_knn_msk,
-            matching_scores.detach()[:, :-1, :-1], sel_valid,
-            k=fm.topk,
-            acceptance_radius=fm.acceptance_radius,
-            mutual=fm.mutual,
-            confidence_threshold=fm.confidence_threshold,
-            correspondence_threshold=fm.correspondence_threshold,
-            num_refinement_steps=fm.num_refinement_steps,
-            max_correspondences=cfg.capacity.max_correspondences,
-            max_patch_correspondences=cfg.capacity.max_patch_correspondences,
-        )
+        with annotate("LGR"):
+            lgr = local_to_global_registration(
+                ref_knn_pts, src_knn_pts, ref_knn_msk, src_knn_msk,
+                matching_scores.detach()[:, :-1, :-1], sel_valid,
+                k=fm.topk,
+                acceptance_radius=fm.acceptance_radius,
+                mutual=fm.mutual,
+                confidence_threshold=fm.confidence_threshold,
+                correspondence_threshold=fm.correspondence_threshold,
+                num_refinement_steps=fm.num_refinement_steps,
+                max_correspondences=cfg.capacity.max_correspondences,
+                max_patch_correspondences=cfg.capacity.max_patch_correspondences,
+            )
         out["ref_corr_points"] = lgr.ref_corr_points
         out["src_corr_points"] = lgr.src_corr_points
         out["corr_scores"] = lgr.corr_scores
@@ -192,13 +205,14 @@ class GaussRegModel(nn.Module):
         out["num_correspondences"] = lgr.num_correspondences
 
         rs = cfg.ransac
-        transform, inliers = ransac_similarity(
-            generator, lgr.src_corr_points, lgr.ref_corr_points, lgr.corr_valid,
-            rs.distance_threshold,
-            num_iterations=rs.num_iterations_train if train else rs.num_iterations_test,
-            num_points=rs.num_points_train if train else rs.num_points_test,
-            with_scale=rs.with_scale,
-        )
+        with annotate("RANSAC"):
+            transform, inliers = ransac_similarity(
+                generator, lgr.src_corr_points, lgr.ref_corr_points, lgr.corr_valid,
+                rs.distance_threshold,
+                num_iterations=rs.num_iterations_train if train else rs.num_iterations_test,
+                num_points=rs.num_points_train if train else rs.num_points_test,
+                with_scale=rs.with_scale,
+            )
         out["estimated_transform"] = transform
         out["ransac_inliers"] = inliers
         return out

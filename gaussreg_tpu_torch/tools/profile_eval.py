@@ -8,8 +8,8 @@ Two views:
      pair's time goes;
   2. --trace: one eval forward under torch.profiler, device time by kernel
      name, the device's busy share of the wall time, and device time per
-     stage (backbone, transformer, matching, Sinkhorn, LGR, RANSAC;
-     tools/profiling.py marks them from outside the model).
+     stage (backbone, transformer, matching, Sinkhorn, LGR, RANSAC: the
+     program's own spans, engine/debug.py `annotate`).
 
     python -m gaussreg_tpu_torch.tools.profile_eval [--trace] [--stages]
         [--tiny] [--cpu]
@@ -70,10 +70,10 @@ def stages(model, batch, device):
 
 
 def trace(model, batch, device):
-    """One full eval forward under torch.profiler, stages marked."""
+    """One full eval forward under torch.profiler, by the program's spans."""
     import torch
 
-    from gaussreg_tpu_torch.tools.profiling import profile_call, stage_ranges
+    from gaussreg_tpu_torch.tools.profiling import profile_call
 
     gen = torch.Generator(device=device)
 
@@ -82,8 +82,7 @@ def trace(model, batch, device):
         return model(batch, gen.manual_seed(7), train=False, with_transform=True)
 
     fwd()  # warm-up outside the trace
-    with stage_ranges(model):
-        return profile_call(fwd, device, "eval fwd, full")
+    return profile_call(fwd, device, "eval fwd, full")
 
 
 def main(argv=None) -> int:

@@ -11,9 +11,9 @@ clock ending in a device sync:
 
 --trace [DIR] runs one more train step under torch.profiler: device time by
 kernel name, the device's busy share, and device time per stage of the
-forward, the loss and the optimizer update (tools/profiling.py marks them
-from outside the model; the backward falls in "other"); with DIR the
-chrome trace is kept there.
+forward, the loss, the backward and the optimizer update (the program's
+own spans, engine/debug.py `annotate`); with DIR the chrome trace is kept
+there.
 
     python -m gaussreg_tpu_torch.tools.profile_trainstep [--trace [DIR]]
         [--only SUBSTRING] [--tiny] [--cpu]
@@ -61,7 +61,7 @@ def main(argv=None) -> int:
     from gaussreg_tpu_torch.device import resolve_device
     from gaussreg_tpu_torch.engine.trainer import make_train_step, pair_generator
     from gaussreg_tpu_torch.models.losses import overall_loss
-    from gaussreg_tpu_torch.tools.profiling import host_slope, profile_call, stage_ranges, sync
+    from gaussreg_tpu_torch.tools.profiling import host_slope, profile_call, sync
 
     dev = resolve_device("cpu" if args.cpu else None)
     cfg = make_tiny_cfg() if args.tiny else make_cfg()
@@ -115,8 +115,7 @@ def main(argv=None) -> int:
             float(m["loss"])
 
         sync(dev)
-        with stage_ranges(model):
-            profile_call(one_step, dev, "one train step", save_to=args.trace or None)
+        profile_call(one_step, dev, "one train step", save_to=args.trace or None)
     return 0
 
 

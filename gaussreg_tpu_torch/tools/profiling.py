@@ -1,16 +1,12 @@
 """Attribution helpers of the profile tools (profile_eval, profile_trainstep,
-profile_fine): a host-clock slope, stage ranges marked on the model from
-outside, and the report of one call under torch.profiler (device time by kernel
-name, the device's busy share, device time by stage).
+profile_fine): a host-clock slope, and the report of one call under
+torch.profiler (device time by kernel name, the device's busy share, device
+time by stage).
 
-A stage is a `record_function` range: the backbone's and the transformer's
-are pushed and popped by forward hooks on those submodules; the stages that
-are functions of models/registration.py (the partition, the superpoint
-matching, Sinkhorn, LGR, RANSAC, and in training the GT overlaps and the GT
-node sampling) by wrapping the names that module calls, and in the train
-step the loss and the optimizer update by wrapping engine/trainer.py's and
-the backward by wrapping torch.autograd.backward (which Tensor.backward
-calls). No module of the port is edited.
+A stage is one of the program's own spans (engine/debug.py `annotate`,
+`record_function` ranges while a profiler records): the pyramid
+(`pair_batch`), the model's layers in models/registration.py, and the train
+step's `loss`, `backward` and `optimizer` in engine/trainer.py.
 
 A kernel is given to the stage in whose window on the device it starts:
 the window runs from the first to the last device event whose launch (the
@@ -23,28 +19,16 @@ stage's torch kernels.
 from __future__ import annotations
 
 import collections
-import contextlib
 import json
 import os
 import tempfile
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
-# (stage, module attribute) pairs wrapped in models/registration.py
-_REGISTRATION_STAGES = (
-    ("partition", "point_to_node_partition"),
-    ("gt_overlaps", "node_overlap_matrix"),
-    ("matching", "superpoint_matching"),
-    ("gt_sampling", "sample_gt_node_correspondences"),
-    ("sinkhorn", "log_optimal_transport"),
-    ("LGR", "local_to_global_registration"),
-    ("RANSAC", "ransac_similarity"),
-)
-_TRAINER_STAGES = (("loss", "overall_loss"), ("optimizer", "apply_gradients"))
-_SUBMODULE_STAGES = ("backbone", "transformer")
-# in the order a train step runs them
-STAGES = ("partition", "backbone", "transformer", "gt_overlaps", "matching", "gt_sampling",
-          "sinkhorn", "LGR", "RANSAC", "loss", "backward", "optimizer")
+# in the order a call runs them: the pyramid, then an eval forward's or a train step's
+STAGES = ("pair_batch", "partition", "backbone", "transformer", "gt_overlaps", "matching",
+          "gt_sampling", "patch_scores", "sinkhorn", "LGR", "RANSAC", "loss", "backward",
+          "optimizer")
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -83,52 +67,6 @@ def host_slope(name: str, fn: Callable[[int], object], device, r_lo: int = 2, r_
     print(f"{name:45s} {per * 1e3:8.2f} ms/rep   (lo {t_lo * 1e3:.0f} hi {t_hi * 1e3:.0f})",
           flush=True)
     return per
-
-
-@contextlib.contextmanager
-def stage_ranges(model):
-    """Mark the model's stages (STAGES) as record_function ranges while
-    inside: forward hooks on its backbone and transformer, wrappers on the
-    functions models/registration.py and engine/trainer.py call."""
-    import torch
-    from torch.autograd.profiler import record_function
-
-    from gaussreg_tpu_torch.engine import trainer
-    from gaussreg_tpu_torch.models import registration
-
-    open_ranges: Dict[str, List] = collections.defaultdict(list)
-    handles = []
-    for stage in _SUBMODULE_STAGES:
-        def pre(_mod, _args, stage=stage):
-            rf = record_function(stage)
-            rf.__enter__()
-            open_ranges[stage].append(rf)
-
-        def post(_mod, _args, _out, stage=stage):
-            open_ranges[stage].pop().__exit__(None, None, None)
-
-        sub = getattr(model, stage)
-        handles += [sub.register_forward_pre_hook(pre), sub.register_forward_hook(post)]
-
-    saved = []
-    for module, pairs in ((registration, _REGISTRATION_STAGES), (trainer, _TRAINER_STAGES),
-                          (torch.autograd, (("backward", "backward"),))):
-        for stage, attr in pairs:
-            orig = getattr(module, attr)
-
-            def wrapper(*args, _orig=orig, _stage=stage, **kwargs):
-                with record_function(_stage):
-                    return _orig(*args, **kwargs)
-
-            saved.append((module, attr, orig))
-            setattr(module, attr, wrapper)
-    try:
-        yield
-    finally:
-        for h in handles:
-            h.remove()
-        for module, attr, orig in saved:
-            setattr(module, attr, orig)
 
 
 def _trace_events(prof, save_to: Optional[str] = None) -> List[dict]:
