@@ -1879,7 +1879,8 @@ SHARDED_MAX_TILES = 64
 
 def library_phase(cfg, dev, pair, fine_ref, cams):
     """13. the library surface beyond the main path, at full width.
-    (a) `make_pair_batch` on one held-out pair with every grid search
+    (a) `make_pair_batch_eager` (the pyramid op by op, so that a route can
+    be swapped in) on one held-out pair with every grid search
     through the legacy select_kernel="pallas" branch (K3's generic entry
     over each query's window distances; launch counts zeroed before and read
     after: 13 launches of the select_min_k route, no other K3 route, no
@@ -1891,7 +1892,10 @@ def library_phase(cfg, dev, pair, fine_ref, cams):
     gather, then the gathered entry), equal index for index: once each to
     warm, then PYRAMID_REPEATS turns alternating which route runs first,
     each run timed and its peak torch.cuda.max_memory_allocated read (reset
-    before, less what was held before); the medians are kept.
+    before, less what was held before); the medians are kept. Then
+    `make_pair_batch`, the build as one replayed CUDA graph, on the same
+    pair: equal to the in-place build bit for bit, and PYRAMID_REPEATS runs
+    timed the same way.
     (b) the brute-force radius_search at N = M = 30 720 (level 0 of that
     pair's reference cloud at the level-0 radius, limit 35) through K3's
     select_min_k_wide route (30 launches of 1024 query rows), equal to the
@@ -1945,13 +1949,14 @@ def library_phase(cfg, dev, pair, fine_ref, cams):
     entries = []
     rp, rf, sp, sf, m = pair
 
-    # (a) the pyramid through the pallas branch
+    # (a) the pyramid through the pallas branch, built op by op (each route
+    # is swapped in for the call)
     def batch(kern):
         search = functools.partial(nb.grid_radius_search, select_kernel=kern)
         with Swap(pipeline_mod, "grid_radius_search", search):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            b = pipeline_mod.make_pair_batch(cfg, rp, rf, sp, sf, m, device=dev)
+            b = pipeline_mod.make_pair_batch_eager(cfg, rp, rf, sp, sf, m, device=dev)
             torch.cuda.synchronize()
             return b, (time.perf_counter() - t0) * 1e3
 
@@ -1984,10 +1989,25 @@ def library_phase(cfg, dev, pair, fine_ref, cams):
     peak_fused, peak_old = (peaks[route] for route in routes)
     fused, old = runs["in place"][0], runs["old route"][0]
     del runs
+    graph_times = []
+    for _ in range(PYRAMID_REPEATS + 1):  # the first may be the capture
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graphed = pipeline_mod.make_pair_batch(cfg, rp, rf, sp, sf, m, device=dev)
+        torch.cuda.synchronize()
+        graph_times.append((time.perf_counter() - t0) * 1e3)
+    t_graph = statistics.median(graph_times[1:])
+    flat = lambda b: [t for f in (*b.pyramid, b.features) for t in (f if isinstance(f, tuple)
+                                                                  else (f,))]
+    if not all(torch.equal(a, b) for a, b in zip(flat(graphed), flat(fused))):
+        raise AssertionError("make_pair_batch's graph differs from the build op by op")
+    log(f"pyramid as one CUDA graph (make_pair_batch): equal to the build op by op bit for bit; "
+        f"median {t_graph:.3f} ms of {graph_times[1:]} (host clock, device synced, warm)")
+    del graphed
     for route in routes:
         log(f"pyramid (13 grid searches, one make_cfg() pair), fused route, K1 {route}: median "
             f"{statistics.median(times[route]):.3f} ms of {times[route]} (host clock, device "
-            f"synced, make_pair_batch, warm, {PYRAMID_REPEATS} turns alternating which route "
+            f"synced, make_pair_batch_eager, warm, {PYRAMID_REPEATS} turns alternating which route "
             f"runs first); torch.cuda.max_memory_allocated across a run at most "
             f"{peaks[route] / 2**30:.3f} GiB above what was held before it")
     for field in ("neighbors", "subsampling", "upsampling"):
@@ -2018,7 +2038,7 @@ def library_phase(cfg, dev, pair, fine_ref, cams):
         raise AssertionError("the two routes count another search overflow")
     log(f"pyramid (13 grid searches, one make_cfg() pair): pallas route (K3 select_min_k) "
         f"equal to the fused route (K1) index for index; {t_pallas:.3f} ms against "
-        f"{t_fused:.3f} ms (host clock, device synced, make_pair_batch); launches {counts}")
+        f"{t_fused:.3f} ms (host clock, device synced, make_pair_batch_eager); launches {counts}")
     if (pallas_launches != 13 or counts["window_select_idx"] != 0
             or any(counts[r] for r in select_k.ROUTES if r != "select_min_k")):
         raise AssertionError(f"the pallas pyramid launched {counts}")
@@ -2033,6 +2053,7 @@ def library_phase(cfg, dev, pair, fine_ref, cams):
     entry = kernel_entry("select_min_k:pallas_pyramid", "gaussreg_tpu_torch/csrc/select_k.cu",
                          "gaussreg_tpu/ops/select_k.py:88", pallas_launches, tot, "f32")
     entry["pyramid_ms"] = {"pallas": t_pallas, "fused": t_fused, "fused_old_route": t_old,
+                           "graph": t_graph,
                            "fused_turns": times["in place"],
                            "fused_old_route_turns": times["old route"]}
     entry["pyramid_peak_bytes"] = {"fused": peak_fused, "fused_old_route": peak_old}
@@ -2300,6 +2321,7 @@ def diagnostics_phase(cfg, model, dev):
     import numpy as np
     import torch
 
+    from gaussreg_tpu_torch.data import pipeline as pipeline_mod
     from gaussreg_tpu_torch.data.pipeline import make_pair_batch
     from gaussreg_tpu_torch.data.synthetic import random_pair
     from gaussreg_tpu_torch.engine.trainer import make_eval_step
@@ -2406,7 +2428,10 @@ def diagnostics_phase(cfg, model, dev):
             wcfg = diagnose_hard_failures.with_window_rows0(cfg, wr)
             for seed in diagnose_hard_failures.SEEDS:
                 if wr == 4:
-                    with Capture(neighbors_mod, "window_select_runs", record=rec_wr4) as c:
+                    # built op by op, so that K1's first call is there to capture
+                    eager = pipeline_mod.make_pair_batch_eager
+                    with Swap(pipeline_mod, "make_pair_batch", eager), \
+                            Capture(neighbors_mod, "window_select_runs", record=rec_wr4) as c:
                         met = diagnose_hard_failures.diagnose_seed(model, wcfg, seed, dev)
                     cap_wr4.extend(c.calls)
                 else:
@@ -2483,6 +2508,7 @@ def main() -> int:
     import numpy as np
     from gaussreg_tpu_torch import api
     from gaussreg_tpu_torch.config import make_cfg
+    from gaussreg_tpu_torch.data import pipeline as pipeline_mod
     from gaussreg_tpu_torch.data.synthetic import random_pair
     from gaussreg_tpu_torch.engine.checkpoint import load_checkpoint
     from gaussreg_tpu_torch.gs import fine_registration as fine_mod
@@ -2567,7 +2593,9 @@ def main() -> int:
 
     # 4. kernels against their plain versions, on one pair's captured calls
     seed, (rp, rf, sp, sf, m) = pairs[-1]
-    with Capture(neighbors_mod, "window_select_runs") as c1, \
+    # the pyramid built op by op: a graph's replay makes no Python call to capture
+    with Swap(api, "make_pair_batch", pipeline_mod.make_pair_batch_eager), \
+            Capture(neighbors_mod, "window_select_runs") as c1, \
             Capture(kpconv_mod, "kpconv_fused_apply") as c2, \
             Capture(matching_mod, "kth_largest_rows_cols") as c3:
         api.coarse_register_clouds(cfg, model, rp, rf, sp, sf, seed=0, device=dev)

@@ -16,7 +16,10 @@ Nothing is compiled or imported when this module is imported.
 
 Every C entry point returns the cudaError_t of its launch
 (cudaGetLastError()); `CudaKernel.launch` raises on a non-zero code and
-counts the launch.
+counts the launch. `launch_counts()` reads those counts beside the path's
+other counters (`counter`), such as a CUDA graph's captures and replays;
+a replay launches what its capture recorded, so the replaying code adds
+those launches back (`add_launches`).
 """
 
 from __future__ import annotations
@@ -108,6 +111,22 @@ def register(name: str, kernel: CudaKernel) -> CudaKernel:
     return kernel
 
 
+class Counter:
+    """A count read and reset with the kernels' launches that is not one
+    kernel's launches."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+COUNTERS: Dict[str, Counter] = {}
+
+
+def counter(name: str) -> Counter:
+    """The counter `name` in `launch_counts()`, made at its first use."""
+    return COUNTERS.setdefault(name, Counter())
+
+
 def _build(kernels: Sequence[CudaKernel]) -> float:
     """Compile the given kernels' sources in parallel (one nvcc process each).
     Returns the wall seconds the build took; raises on a failed build."""
@@ -149,12 +168,21 @@ def build_all() -> float:
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS.values():
+    for k in (*KERNELS.values(), *COUNTERS.values()):
         k.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: k.launches for name, k in KERNELS.items()}
+    """Each kernel's launches and each counter's count, by name."""
+    return {name: k.launches for name, k in {**KERNELS, **COUNTERS}.items()}
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add `counts` (by name, as launch_counts() gives them; negative to
+    take off) to the kernels' and counters' counts."""
+    every = {**KERNELS, **COUNTERS}
+    for name, n in counts.items():
+        every[name].launches += n
 
 
 def check_cuda_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int):

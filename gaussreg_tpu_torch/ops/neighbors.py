@@ -227,7 +227,7 @@ def grid_radius_search(
     s_points: torch.Tensor,  # (B, N, 3)
     q_mask: torch.Tensor,  # (B, M)
     s_mask: torch.Tensor,  # (B, N)
-    radius,
+    radius,  # a float, or an f32 scalar tensor on the points' device (no upload)
     limit: int,
     window_rows: int = 2,
     select_kernel: str = "auto",  # auto | fused | pallas | topk

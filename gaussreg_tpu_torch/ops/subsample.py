@@ -6,7 +6,10 @@ a fixed-capacity segmented sum. Every sort here is stable, as jnp.argsort is,
 so equal keys keep their input order exactly as in the JAX package. Scalar
 divisors are passed as tensors on the points' device: a CUDA division by a
 host scalar is computed as a multiplication by its reciprocal, which can
-move a point across a voxel boundary.
+move a point across a voxel boundary. A cell size may be a Python float
+(uploaded at each call) or an f32 scalar tensor already on the device
+(used as it is: no copy, so no wait for the device). Nothing here reads a
+value back to the host, so a build can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -24,6 +27,15 @@ def _cells(points: torch.Tensor, mask: torch.Tensor, cell_size) -> torch.Tensor:
     pmin = torch.where(mask[:, None], points, big).amin(dim=0)
     cs = torch.as_tensor(cell_size, dtype=points.dtype, device=points.device)
     return torch.clamp(torch.floor((points - pmin) / cs).to(torch.int32), 0, _CMAX)
+
+
+def segment_lengths(seg: torch.Tensor, capacity: int) -> torch.Tensor:
+    """torch.bincount(seg, minlength=capacity + 1) of a non-decreasing int64
+    seg in [0, capacity]: where each value's run starts, by searchsorted,
+    and the differences. bincount sizes its output from the largest value,
+    which it reads back to the host; this reads nothing back."""
+    starts = torch.searchsorted(seg, torch.arange(capacity + 2, device=seg.device))
+    return starts[1:] - starts[:-1]
 
 
 def grid_subsample(
@@ -56,7 +68,7 @@ def grid_subsample(
     # segmented sum adds each run in order, deterministically on the card
     # (a scatter-add would use atomics) and in the JAX package's order
     seg = torch.where(svalid & (seg >= 0) & (seg < capacity), seg, capacity).long()
-    lengths = torch.bincount(seg, minlength=capacity + 1)
+    lengths = segment_lengths(seg, capacity)
     zero = torch.zeros((), dtype=points.dtype, device=points.device)
     sums = torch.segment_reduce(
         torch.where(svalid[:, None], spts, zero), "sum", lengths=lengths, axis=0, unsafe=True

@@ -148,7 +148,7 @@ def capture_inputs():
     grid = functools.partial(nb.grid_radius_search, select_kernel="pallas")
     with chip_smoke.Swap(pipeline_mod, "grid_radius_search", grid), \
             chip_smoke.Capture(nb, "select_min_k") as c3:
-        batch = pipeline_mod.make_pair_batch(cfg, rp, rf, sp, sf, m, device="cuda")
+        batch = pipeline_mod.make_pair_batch_eager(cfg, rp, rf, sp, sf, m, device="cuda")
     pts, msk = batch.pyramid.points[0][0], batch.pyramid.masks[0][0]
     with chip_smoke.Capture(nb, "select_min_k") as cw:
         nb.radius_search(pts, pts, msk, msk, cfg.backbone.init_radius,

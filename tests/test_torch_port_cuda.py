@@ -1061,3 +1061,113 @@ def test_kpconv_past_16_kernel_points_on_the_card(cuda, kernel_size):
     infl = torch.zeros(1, 4, 8, kernel_size, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="K <= 16"):
         kk.kpconv_fused_apply(nf, infl, torch.zeros(kernel_size, 16, 8, device=cuda))
+
+
+def _batch_tensors(batch):
+    """Every tensor of a PairBatch, named: each Pyramid field, the features
+    and the transform."""
+    out = {"features": batch.features, "transform": batch.transform}
+    for field, value in batch.pyramid._asdict().items():
+        for i, t in enumerate(value if isinstance(value, tuple) else (value,)):
+            out[f"{field}[{i}]"] = t
+    return out
+
+
+def _assert_batches_equal(got, want):
+    a, b = _batch_tensors(got), _batch_tensors(want)
+    assert a.keys() == b.keys()
+    for name in a:
+        assert a[name].dtype == b[name].dtype and torch.equal(a[name], b[name]), name
+
+
+def _spread_pair(n, seed):
+    """A pair of n points spread over a 10 m cube, nearly one point a level-1
+    voxel: level 1 holds more voxels than make_cfg()'s 16 384."""
+    rng = np.random.default_rng(seed)
+    pts = [rng.uniform(0.0, 10.0, size=(n, 3)).astype(np.float32) for _ in range(2)]
+    feats = [rng.uniform(0.0, 1.0, size=(n, 4)).astype(np.float32) for _ in range(2)]
+    return pts[0], feats[0], pts[1], feats[1], np.eye(4, dtype=np.float32)
+
+
+def test_pair_batch_graph_equals_the_eager_build(cuda):
+    """make_cfg(): make_pair_batch's replayed graph gives the eager build's
+    every Pyramid field, features and transform bit for bit, on three pairs
+    of different sizes, one past level 1's capacity."""
+    from gaussreg_tpu_torch.config import make_cfg
+    from gaussreg_tpu_torch.data import pipeline
+    from gaussreg_tpu_torch.data.synthetic import random_pair
+    from gaussreg_tpu_torch.ops import _cuda
+
+    cfg = make_cfg()
+    pipeline.make_pair_batch(cfg, *random_pair(cfg, 1, num_points=2000), device=cuda)  # captured
+    pairs = [random_pair(cfg, 2, num_points=30000), random_pair(cfg, 3, num_points=9000),
+             _spread_pair(30000, 4)]
+    replays = _cuda.launch_counts()["pyramid_graph.replay"]
+    for pair in pairs:
+        got = pipeline.make_pair_batch(cfg, *pair, device=cuda)
+        _assert_batches_equal(got, pipeline.make_pair_batch_eager(cfg, *pair, device=cuda))
+    assert _cuda.launch_counts()["pyramid_graph.replay"] == replays + 3
+    assert int(got.pyramid.num_voxels[1].min()) > cfg.capacity.levels[1]
+
+
+def test_pair_batch_graph_outputs_belong_to_the_caller(cuda):
+    """A batch that make_pair_batch returned is unchanged by the next call,
+    which replays the same graph on another pair."""
+    from gaussreg_tpu_torch.config import make_cfg
+    from gaussreg_tpu_torch.data.pipeline import make_pair_batch
+    from gaussreg_tpu_torch.data.synthetic import random_pair
+
+    cfg = make_cfg()
+    make_pair_batch(cfg, *random_pair(cfg, 5, num_points=2000), device=cuda)  # captured
+    first = make_pair_batch(cfg, *random_pair(cfg, 6, num_points=20000), device=cuda)
+    kept = {name: t.clone() for name, t in _batch_tensors(first).items()}
+    second = make_pair_batch(cfg, *random_pair(cfg, 7, num_points=25000), device=cuda)
+    torch.cuda.synchronize()
+    for name, t in _batch_tensors(first).items():
+        assert torch.equal(t, kept[name]), name
+    assert not torch.equal(first.pyramid.points[0], second.pyramid.points[0])
+
+
+def test_pair_batch_captures_one_graph_per_configuration(cuda):
+    """Two configurations (make_tiny_cfg() at level-0 windows of 3 and 4
+    rows) make two captures; the next call of each replays its own graph,
+    equal to the eager build."""
+    import dataclasses
+
+    from gaussreg_tpu_torch.config import make_tiny_cfg
+    from gaussreg_tpu_torch.data import pipeline
+    from gaussreg_tpu_torch.data.synthetic import random_pair
+    from gaussreg_tpu_torch.ops import _cuda
+
+    tiny = make_tiny_cfg()
+    cfgs = [dataclasses.replace(tiny, capacity=dataclasses.replace(tiny.capacity, window_rows0=w))
+            for w in (3, 4)]
+    counts = lambda: [_cuda.launch_counts()[f"pyramid_graph.{n}"] for n in ("capture", "replay")]
+    start = counts()
+    for cfg in cfgs:
+        pipeline.make_pair_batch(cfg, *random_pair(cfg, 8, num_points=700), device=cuda)
+    assert counts() == [start[0] + 2, start[1]]
+    for i, cfg in enumerate(cfgs):
+        pair = random_pair(cfg, 9 + i, num_points=800)
+        got = pipeline.make_pair_batch(cfg, *pair, device=cuda)
+        _assert_batches_equal(got, pipeline.make_pair_batch_eager(cfg, *pair, device=cuda))
+    assert counts() == [start[0] + 2, start[1] + 2]
+
+
+def test_pair_batch_replays_count_their_k1_launches(cuda):
+    """Over 4 replayed make_cfg() pairs, launch_counts() reads K1's 13
+    launches a pair, 4 replays and no capture."""
+    from gaussreg_tpu_torch.config import make_cfg
+    from gaussreg_tpu_torch.data.pipeline import make_pair_batch
+    from gaussreg_tpu_torch.data.synthetic import random_pair
+    from gaussreg_tpu_torch.ops import _cuda
+
+    cfg = make_cfg()
+    make_pair_batch(cfg, *random_pair(cfg, 10, num_points=2000), device=cuda)  # captured
+    pairs = [random_pair(cfg, 11 + i, num_points=10000) for i in range(4)]
+    _cuda.reset_launch_counts()
+    for pair in pairs:
+        make_pair_batch(cfg, *pair, device=cuda)
+    counts = _cuda.launch_counts()
+    assert counts["window_select_idx"] == 4 * 13
+    assert counts["pyramid_graph.replay"] == 4 and counts["pyramid_graph.capture"] == 0
