@@ -82,17 +82,24 @@ def register_gs_pair(
     coarse registration, un-normalize; with `fine`, refine the result by
     render-and-compare (gs/fine_registration.py) from the viewpoints of a
     cameras.json (given, or found next to the ref model) or from synthetic
-    orbit views."""
+    orbit views.
+
+    Spans: `gs_pair.extract` (both clouds read and extracted),
+    `gs_pair.normalise`, `coarse_call`, and with `fine` `gs_pair.fine_load`
+    (both models read and moved to the device) and `fine_call`."""
     dev = resolve_device(device)
     cfg = cfg or make_cfg()
     point_limit = point_limit or cfg.train.point_limit
 
-    ref_points, ref_feats = load_point_cloud_from_gs_ply(ref_ply_path, point_limit, seed=seed)
-    src_points, src_feats = load_point_cloud_from_gs_ply(src_ply_path, point_limit, seed=seed + 1)
-    ref_n, src_n, _, _, ref_scale, src_scale, ref_center, src_center = adjust_point_cloud_volume(
-        ref_points, src_points, np.eye(3), np.zeros(3),
-        min_adjust_volume=30.0, apply_translation=True,
-    )
+    with annotate("gs_pair.extract"):
+        ref_points, ref_feats = load_point_cloud_from_gs_ply(ref_ply_path, point_limit,
+                                                             seed=seed)
+        src_points, src_feats = load_point_cloud_from_gs_ply(src_ply_path, point_limit,
+                                                             seed=seed + 1)
+    with annotate("gs_pair.normalise"):
+        ref_n, src_n, _, _, ref_scale, src_scale, ref_center, src_center = (
+            adjust_point_cloud_volume(ref_points, src_points, np.eye(3), np.zeros(3),
+                                      min_adjust_volume=30.0, apply_translation=True))
     out = coarse_register_clouds(
         cfg, model, ref_n, ref_feats, src_n, src_feats, seed=seed, device=dev
     )
@@ -111,8 +118,11 @@ def register_gs_pair(
         "src_colors": src_feats[:, 1:4],
     }
     if fine:
-        ref_g = to_device_gaussians(load_gaussians(ref_ply_path), max_fine_gaussians, device=dev)
-        src_g = to_device_gaussians(load_gaussians(src_ply_path), max_fine_gaussians, device=dev)
+        with annotate("gs_pair.fine_load"):
+            ref_g = to_device_gaussians(load_gaussians(ref_ply_path), max_fine_gaussians,
+                                        device=dev)
+            src_g = to_device_gaussians(load_gaussians(src_ply_path), max_fine_gaussians,
+                                        device=dev)
         # the fine render compares views of the REF frame, so ref's cameras
         # are the right ones
         cams_path = cameras_json or find_cameras_json(ref_ply_path)

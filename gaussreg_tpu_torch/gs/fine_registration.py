@@ -8,27 +8,61 @@ viewpoints. Gradients flow through the rasterizer's autograd.Function
 (CUDA kernels on CUDA tensors). The JAX package runs each segment as one
 compiled scan; here a segment is a Python loop of eager steps. Capacities
 are read from device counters between segments (`int(...)`, a host sync
-each); inside a segment nothing is read back.
+each); inside a segment nothing is read back. After a segment one read
+tells whether any of its renders breached a capacity, or whether the
+per-gaussian tile cap dropped more than its bound; such a segment is run
+again from its saved pose and Adam state uncapped (and at more tiles a
+gaussian), so no step's loss or gradient comes from a render that dropped
+pairs at a capacity.
+
+Spans (engine/debug.annotate): `fine_call` around a call, `fine.targets`,
+`fine.probe` (each probe), `fine.step` with `fine.step.forward`,
+`fine.step.backward` and `fine.step.adam`, and `fine.check` (the read after
+a segment). Counters, read with the kernels' launches
+(`ops._cuda.launch_counts()`): `fine.steps` (redone ones included),
+`fine.probes`, `fine.segments_redone`,
+`fine.cap_pairs_dropped` (pairs the segments' renders dropped at a
+capacity, redone segments' included), `fine.tile_pairs_dropped` (pairs
+the per-gaussian tile cap dropped in the accepted steps' renders) and
+`fine.pairs` (the pairs those renders binned).
 """
 
 from __future__ import annotations
 
+import copy
 from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from gaussreg_tpu_torch.device import DeviceLike, resolve_device
+from gaussreg_tpu_torch.engine.debug import annotate
 from gaussreg_tpu_torch.gs import sh as sh_mod
 from gaussreg_tpu_torch.gs.ply import GaussianModel
 from gaussreg_tpu_torch.gs.rasterizer.camera import Camera, look_at_camera
 from gaussreg_tpu_torch.gs.rasterizer.render import render
+from gaussreg_tpu_torch.ops import _cuda
 from gaussreg_tpu_torch.ops.transforms import (
     exp_so3,
     matrix_to_quaternion,
     quaternion_multiply,
     transform_from_rotation_translation,
 )
+
+STEPS = _cuda.counter("fine.steps")
+PROBES = _cuda.counter("fine.probes")
+REDONE = _cuda.counter("fine.segments_redone")
+CAP_DROPPED = _cuda.counter("fine.cap_pairs_dropped")
+TILE_DROPPED = _cuda.counter("fine.tile_pairs_dropped")
+PAIRS = _cuda.counter("fine.pairs")
+# a segment runs at most this often: at the probe's capacities, then uncapped
+SEGMENT_ATTEMPTS = 2
+# the share of pairs the adaptive tile cap may drop: the probe picks the
+# smallest of MT_CANDIDATES (max_tiles_per_gaussian) under it, and a segment
+# is held to it too. Candidates past 16 serve views with gaussians near the
+# camera (the JAX package stops at 16)
+TILE_DROP_SHARE = 1e-3
+MT_CANDIDATES = (4, 8, 16, 32, 64, 128)
 
 
 class GaussiansDevice(NamedTuple):
@@ -144,8 +178,8 @@ def _delta_transform(params):
 class FineRegistrationResult(NamedTuple):
     transform: torch.Tensor  # refined (4, 4) similarity src -> ref
     losses: torch.Tensor  # (steps,) photometric loss trace
-    overflow: torch.Tensor  # () int32 total pairs dropped by the capacities
-    # across all steps/views (0 = the probe-sized caps never overflowed)
+    overflow: torch.Tensor  # () int32 pairs dropped by the capacities across
+    # the accepted segments' steps and views (0: no loss saw a dropped pair)
 
 
 def _quant_up(x, q: int) -> int:
@@ -154,7 +188,7 @@ def _quant_up(x, q: int) -> int:
 
 class _Caps(NamedTuple):
     mt: int
-    bwd_cap: int
+    bwd_cap: Optional[int]
     live_cap: Optional[int]
     pair_cap: Optional[int]
     sat_depths: Optional[List[torch.Tensor]]
@@ -166,7 +200,8 @@ def _probe_caps(
 ) -> _Caps:
     """Two-probe capacity protocol at the given pose; also picks
     max_tiles_per_gaussian from the probe's own overflow counters."""
-    with torch.no_grad():
+    PROBES.launches += 1
+    with annotate("fine.probe"), torch.no_grad():
         moved = transform_gaussians_device(src, transform)
 
         def rend(cam, mt, sat_depth=None):
@@ -177,18 +212,17 @@ def _probe_caps(
                 max_tiles_per_gaussian=mt, sat_depth=sat_depth,
             )
 
-        mt = mt_candidates[-1]
-        probes1 = [rend(cam, mt) for cam in cameras]
-        for cand in mt_candidates[:-1]:
+        # the smallest candidate whose renders drop under TILE_DROP_SHARE of
+        # their pairs, else the largest
+        for mt in mt_candidates:
+            probes1 = [rend(cam, mt) for cam in cameras]
+            if mt == mt_candidates[-1]:
+                break
             worst = 0.0
-            for cam in cameras:
-                p = rend(cam, cand)
+            for p in probes1:
                 dropped = float(p.overflow)
-                total = dropped + float(p.num_pairs)
-                worst = max(worst, dropped / max(total, 1.0))
-            if worst < 1e-3:
-                mt = cand
-                probes1 = [rend(cam, mt) for cam in cameras]
+                worst = max(worst, dropped / max(dropped + float(p.num_pairs), 1.0))
+            if worst < TILE_DROP_SHARE:
                 break
         bwd_cap = _quant_up(max(int(p.sat_blocks) for p in probes1) * 1.25 + 64, 256)
         live_cap = pair_cap = sat_depths = None
@@ -203,6 +237,30 @@ def _probe_caps(
             )
             sat_depths = [p1.sat_depth for p1 in probes1]
     return _Caps(mt, bwd_cap, live_cap, pair_cap, sat_depths)
+
+
+def _render_targets(ref: GaussiansDevice, cameras: Sequence[Camera],
+                    mt_candidates: Sequence[int], dense_reference: bool):
+    """The reference model's renders of the views, each at the smallest
+    max_tiles_per_gaussian of 16 and the larger candidates whose render
+    drops under TILE_DROP_SHARE of its pairs (else the largest): a target
+    that drops the pairs of gaussians near the camera would be compared
+    with renders that keep them."""
+    targets = []
+    with annotate("fine.targets"), torch.no_grad():
+        for cam in cameras:
+            for mt in [m for m in mt_candidates if m >= 16] or [mt_candidates[-1]]:
+                out = render(
+                    ref.means, ref.scales, ref.quats, ref.opacities, ref.sh_coeffs,
+                    cam, valid=ref.valid, dense_reference=dense_reference,
+                    max_tiles_per_gaussian=mt,
+                )
+                dropped = float(out.overflow)
+                if mt == mt_candidates[-1] or dropped < TILE_DROP_SHARE * max(
+                        dropped + float(out.num_pairs), 1.0):
+                    break
+            targets.append(out)
+    return targets
 
 
 def fine_register(
@@ -225,32 +283,48 @@ def fine_register(
     render of the same view (render.py): the sat_depth tensors are carried
     from step to step, so the cull margin only has to cover one Adam step
     of pose drift, and the pair sort, the gathers and the backward all run
-    at the probe-sized culled capacities. `overflow` in the result counts
-    any capacity breach (0 in a healthy run, never silently dropped).
+    at the probe-sized culled capacities.
 
     - `reprobe_every`: the trajectory runs in SEGMENTS of this many steps;
       capacities are re-probed from the CURRENT pose between segments
       (fixed step-0 caps are breached as the pose drifts). Caps are
-      quantized upward (256/1024/64-block buckets).
+      quantized upward (256/1024/64-block buckets). The probe sees only
+      the segment's first pose, and later steps may need more: after each
+      segment one read of its renders' counters shows whether any dropped
+      pairs at the live or pair capacity or walked past the backward's
+      buffer. Such a segment is run again from the pose, Adam state and
+      saturation depths it started from, uncapped: the pair list and the
+      backward's buffer at their worst case and no live cap, where no
+      capacity can drop anything. So is a segment whose
+      renders the tile cap dropped more than TILE_DROP_SHARE of the pairs
+      of (the probe's bound, which drift can pass), at the next larger
+      max_tiles_per_gaussian. A segment without a breach runs once, at the
+      probe's capacities, as before.
     - `adaptive_mt`: subpixel-dominated scenes have median bboxes of ~1
       tile; a probe measures the pair overflow at
-      max_tiles_per_gaussian in {4, 8, 16} and picks the smallest whose
+      max_tiles_per_gaussian in MT_CANDIDATES and picks the smallest whose
       dropped-pair fraction is < 1e-3 (those pairs are counted in each
-      render's `overflow`, not in the result's).
+      render's `overflow` and the counter `fine.tile_pairs_dropped`, not in
+      the result's).
     - `dense_reference`: render with the dense reference renderer (tiny
       scenes only).
+
+    `overflow` in the result counts the pairs that the accepted segments'
+    renders dropped at a capacity: 0, as a breached segment is redone and
+    its uncapped attempt has no capacity to drop pairs at.
     """
+    with annotate("fine_call"):
+        return _fine_register(ref, src, init_transform, cameras, num_steps, lr,
+                              dense_reference, sat_cull, reprobe_every, adaptive_mt)
+
+
+def _fine_register(ref, src, init_transform, cameras, num_steps, lr, dense_reference,
+                   sat_cull, reprobe_every, adaptive_mt) -> FineRegistrationResult:
     dev = src.means.device
     init_transform = torch.as_tensor(init_transform, dtype=torch.float32, device=dev)
 
-    with torch.no_grad():
-        targets = [
-            render(
-                ref.means, ref.scales, ref.quats, ref.opacities, ref.sh_coeffs,
-                cam, valid=ref.valid, dense_reference=dense_reference,
-            )
-            for cam in cameras
-        ]
+    mt_candidates = MT_CANDIDATES if adaptive_mt else (16,)
+    targets = _render_targets(ref, cameras, mt_candidates, dense_reference)
     target_arrays = [(t.rgb, t.transmittance) for t in targets]
 
     params = {
@@ -263,11 +337,13 @@ def fine_register(
     optimizer = torch.optim.Adam(list(params.values()), lr=lr, eps=1e-8)
 
     def photometric_loss(caps: _Caps, sat_depths):
+        """The loss at the current pose, the renders' saturation depths,
+        and per render (overflow_cap, overflow, num_pairs, sat_blocks),
+        stacked (views, 4) int32."""
         transform = _delta_transform(params) @ init_transform
         moved = transform_gaussians_device(src, transform)
         loss = 0.0
-        overflow = torch.zeros((), dtype=torch.int32, device=dev)
-        new_sat = []
+        new_sat, stats = [], []
         for i, cam in enumerate(cameras):
             out = render(
                 moved.means, moved.scales, moved.quats, moved.opacities,
@@ -284,11 +360,36 @@ def fine_register(
             # L1 on colour; the transmittance term keeps coverage aligned
             loss = loss + torch.mean(torch.abs(out.rgb - t_rgb))
             loss = loss + 0.1 * torch.mean(torch.abs(out.transmittance - t_tr))
-            overflow = overflow + out.overflow_cap
+            stats.append(torch.stack([out.overflow_cap, out.overflow, out.num_pairs,
+                                      out.sat_blocks]).to(torch.int32))
             new_sat.append(out.sat_depth.detach())
-        return loss / len(cameras), new_sat, overflow
+        return loss / len(cameras), new_sat, torch.stack(stats)
 
-    mt_candidates = (4, 8, 16) if adaptive_mt else (16,)
+    def run_segment(caps: _Caps, steps: int):
+        """`steps` steps at `caps`; returns their losses, the summed
+        (overflow_cap, overflow, num_pairs) and the largest sat_blocks over
+        their renders, on the device."""
+        sat_depths = caps.sat_depths
+        losses = []
+        sums = torch.zeros(3, dtype=torch.int64, device=dev)
+        max_sat = torch.zeros((), dtype=torch.int32, device=dev)
+        for _ in range(steps):
+            STEPS.launches += 1
+            with annotate("fine.step"):
+                optimizer.zero_grad(set_to_none=True)
+                with annotate("fine.step.forward"):
+                    loss, new_sat, stats = photometric_loss(caps, sat_depths)
+                with annotate("fine.step.backward"):
+                    loss.backward()
+                with annotate("fine.step.adam"):
+                    optimizer.step()
+                if sat_depths is not None:
+                    sat_depths = new_sat
+                losses.append(loss.detach())
+                sums = sums + stats[:, :3].sum(dim=0)
+                max_sat = torch.maximum(max_sat, stats[:, 3].amax())
+        return losses, sums, max_sat
+
     losses = []
     overflow = torch.zeros((), dtype=torch.int32, device=dev)
     done = 0
@@ -298,16 +399,32 @@ def fine_register(
         with torch.no_grad():
             current = _delta_transform(params) @ init_transform
         caps = _probe_caps(src, current, cameras, mt_candidates, sat_cull, dense_reference)
-        sat_depths = caps.sat_depths
-        for _ in range(seg):
-            optimizer.zero_grad(set_to_none=True)
-            loss, new_sat, of = photometric_loss(caps, sat_depths)
-            loss.backward()
-            optimizer.step()
-            if sat_depths is not None:
-                sat_depths = new_sat
-            losses.append(loss.detach())
-            overflow = overflow + of
+        start = ({k: p.detach().clone() for k, p in params.items()},
+                 copy.deepcopy(optimizer.state_dict()))
+        for attempt in range(SEGMENT_ATTEMPTS):
+            seg_losses, sums, max_sat = run_segment(caps, seg)
+            with annotate("fine.check"):
+                cap_dropped, tile_dropped, pairs, max_sat = (
+                    torch.cat([sums, max_sat.to(torch.int64).reshape(1)]).tolist())
+            CAP_DROPPED.launches += cap_dropped
+            bwd_breach = caps.bwd_cap is not None and max_sat > caps.bwd_cap
+            wider = [m for m in mt_candidates if m > caps.mt]
+            tile_breach = bool(wider) and tile_dropped > TILE_DROP_SHARE * (tile_dropped
+                                                                            + pairs)
+            if attempt == SEGMENT_ATTEMPTS - 1 or not (cap_dropped or bwd_breach
+                                                       or tile_breach):
+                break
+            REDONE.launches += 1
+            with torch.no_grad():
+                for k, p in params.items():
+                    p.copy_(start[0][k])
+            optimizer.load_state_dict(copy.deepcopy(start[1]))
+            caps = caps._replace(mt=wider[0] if tile_breach else caps.mt, bwd_cap=None,
+                                 live_cap=None, pair_cap=None)
+        TILE_DROPPED.launches += tile_dropped
+        PAIRS.launches += pairs
+        losses += seg_losses
+        overflow = overflow + cap_dropped
         done += seg
 
     with torch.no_grad():

@@ -61,6 +61,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from gaussreg_tpu_torch.engine.debug import annotate
 from gaussreg_tpu_torch.gs.rasterizer.accumulate import accumulate_pairs
 from gaussreg_tpu_torch.gs.rasterizer.binning import TileBinning, slot_positions
 from gaussreg_tpu_torch.ops import _cuda
@@ -458,19 +459,22 @@ class _RasterizeGaussians(torch.autograd.Function):
         d_planes = torch.cat([d_rgb.permute(2, 0, 1), d_depth[None]], dim=0)  # (4, H, W)
         v = torch.sum(d_planes * planes[:4], dim=0)
         ct_planes = torch.cat([d_planes, d_t[None], planes[4:5], v[None]], dim=0)
-        grad_rows = rasterize_backward(
-            gdata, sorted_gid, starts, offs, ct_planes.contiguous(), bwd_blocks,
-            height, width, tile_h, tile_w, state,
-        )
+        with annotate("render.raster_bwd"):
+            grad_rows = rasterize_backward(
+                gdata, sorted_gid, starts, offs, ct_planes.contiguous(), bwd_blocks,
+                height, width, tile_h, tile_w, state,
+            )
         # the pair table, built here: only a differentiated render pays for
         # it. The sentinel row G is in no row of the table: its cotangent
         # stays zero (alpha == 0 there)
-        n_rows = row_gid.shape[0]
-        slot_pos = slot_positions(order, n_rows, order.shape[0] // max(n_rows, 1),
-                                  starts[:1])
-        d_gdata = accumulate_pairs(
-            grad_rows, slot_pos, row_gid, starts, offs, sorted_gid.shape[0], gdata.shape[0]
-        )
+        with annotate("render.accumulate"):
+            n_rows = row_gid.shape[0]
+            slot_pos = slot_positions(order, n_rows, order.shape[0] // max(n_rows, 1),
+                                      starts[:1])
+            d_gdata = accumulate_pairs(
+                grad_rows, slot_pos, row_gid, starts, offs, sorted_gid.shape[0],
+                gdata.shape[0]
+            )
         return d_gdata, None, None, None, None, None, None, None, None, None, None
 
 

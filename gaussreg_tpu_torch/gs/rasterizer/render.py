@@ -19,6 +19,10 @@ own rows through the same binning and kernels (K4-K6 launch on every
 rank); the backward sums the gaussian-parameter gradients across the ranks
 (`_Replicated`). `gather_rows` assembles the full image from the ranks'
 rows.
+
+Spans (engine/debug.annotate): `render.project`, `render.bin` and
+`render.raster` (the channel rows and K4); the backward's `render.raster_bwd`
+(K5) and `render.accumulate` (K6) are kernels.py's.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.distributed as dist
 
+from gaussreg_tpu_torch.engine.debug import annotate
 from gaussreg_tpu_torch.gs.rasterizer import kernels
 from gaussreg_tpu_torch.gs.rasterizer.binning import align_blocks, bin_gaussians
 from gaussreg_tpu_torch.gs.rasterizer.camera import Camera
@@ -78,31 +83,33 @@ def _bin_and_rasterize(
     dev = proj.means2d.device
     depths = proj.depths.detach()
 
-    binning = bin_gaussians(
-        proj.means2d.detach(), proj.radii.detach(), depths, wp, hp,
-        tile_w=tile_w, tile_h=tile_h,
-        max_tiles_per_gaussian=max_tiles_per_gaussian, chunk=kernels.CHUNK,
-        pair_capacity_blocks=pair_capacity_blocks,
-        extents=proj.extents.detach(), minor=proj.minor.detach(),
-        sat_depth=sat_depth, live_cap=live_cap, sat_margin=sat_margin,
-        row0=row0, full_height=full_height,
-    )
-    if pairs_before is not None:
-        binning = align_blocks(binning, pairs_before(binning.num_pairs), g, kernels.CHUNK)
+    with annotate("render.bin"):
+        binning = bin_gaussians(
+            proj.means2d.detach(), proj.radii.detach(), depths, wp, hp,
+            tile_w=tile_w, tile_h=tile_h,
+            max_tiles_per_gaussian=max_tiles_per_gaussian, chunk=kernels.CHUNK,
+            pair_capacity_blocks=pair_capacity_blocks,
+            extents=proj.extents.detach(), minor=proj.minor.detach(),
+            sat_depth=sat_depth, live_cap=live_cap, sat_margin=sat_margin,
+            row0=row0, full_height=full_height,
+        )
+        if pairs_before is not None:
+            binning = align_blocks(binning, pairs_before(binning.num_pairs), g, kernels.CHUNK)
 
-    coeffs = kernels.quadratic_coeffs(proj.means2d, proj.conics, proj.opacities)  # (G, 6)
-    zeros2 = torch.zeros((g, 2), dtype=torch.float32, device=dev)
-    gdata = torch.cat(
-        [coeffs, zeros2, proj.colors, proj.depths[:, None], zeros2, zeros2], dim=1
-    )  # (G, NCHAN)
-    # sentinel row: power -> -inf so alpha == 0
-    sentinel = torch.zeros((1, kernels.NCHAN), dtype=torch.float32, device=dev)
-    sentinel[0, 0] = -1e30
-    gdata = torch.cat([gdata, sentinel], dim=0)
+    with annotate("render.raster"):
+        coeffs = kernels.quadratic_coeffs(proj.means2d, proj.conics, proj.opacities)  # (G, 6)
+        zeros2 = torch.zeros((g, 2), dtype=torch.float32, device=dev)
+        gdata = torch.cat(
+            [coeffs, zeros2, proj.colors, proj.depths[:, None], zeros2, zeros2], dim=1
+        )  # (G, NCHAN)
+        # sentinel row: power -> -inf so alpha == 0
+        sentinel = torch.zeros((1, kernels.NCHAN), dtype=torch.float32, device=dev)
+        sentinel[0, 0] = -1e30
+        gdata = torch.cat([gdata, sentinel], dim=0)
 
-    rgb, depth, t, kend = kernels.rasterize_gaussians(
-        gdata, binning, row0 + hp, wp, tile_h, tile_w, bwd_capacity_blocks
-    )
+        rgb, depth, t, kend = kernels.rasterize_gaussians(
+            gdata, binning, row0 + hp, wp, tile_h, tile_w, bwd_capacity_blocks
+        )
 
     # per-tile saturation depth for the NEXT render of ~this scene: the
     # depth of the last pair the forward composited when it exited early
@@ -178,10 +185,11 @@ def render(
             scene/pose deltas between the probe and this render).
     """
     width, height = int(camera.width), int(camera.height)
-    proj = project_gaussians(
-        means3d, scales, quats, opacities, sh_coeffs, camera, valid=valid,
-        sh_degree=sh_degree,
-    )
+    with annotate("render.project"):
+        proj = project_gaussians(
+            means3d, scales, quats, opacities, sh_coeffs, camera, valid=valid,
+            sh_degree=sh_degree,
+        )
     hp = _round_up(height, tile_h)
     wp = _round_up(width, tile_w)
 

@@ -1,0 +1,16 @@
+"""K4 (csrc/rasterize_fwd.cu), the tile forward, against its
+roofline, in %: the least time the traced call's launches need
+(portbench/counts_fine.py k4_counts, from the reference's pixel-gaussian
+work of the call's views) over the device time of the kernel found by
+symbol."""
+
+from portbench import peaks
+
+
+def read(trace):
+    ms = trace.kernel_ms("rasterize_fwd_kernel")
+    if not ms or "k4_bytes" not in trace.info:
+        return None
+    need = peaks.roofline_s(trace.info["k4_bytes"], trace.info["k4_bf16_flops"],
+                            trace.info["k4_f32_flops"])
+    return 100.0 * need / (ms / 1e3)
