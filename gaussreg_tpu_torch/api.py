@@ -30,7 +30,7 @@ from gaussreg_tpu_torch.gs.fine_registration import (
     to_device_gaussians,
 )
 from gaussreg_tpu_torch.gs.fusion import gaussian_fuse  # noqa: F401 (re-export)
-from gaussreg_tpu_torch.gs.ply import load_gaussians, write_ply_vertex
+from gaussreg_tpu_torch.gs.ply import write_ply_vertex
 from gaussreg_tpu_torch.models.metrics import unnormalize_transform
 from gaussreg_tpu_torch.models.registration import GaussRegModel
 
@@ -84,18 +84,23 @@ def register_gs_pair(
     cameras.json (given, or found next to the ref model) or from synthetic
     orbit views.
 
-    Spans: `gs_pair.extract` (both clouds read and extracted),
+    Each .ply file is read once: with `fine`, the extraction's models are
+    the ones refined.
+
+    Spans: `gs_pair.extract` (both models read, both clouds extracted),
     `gs_pair.normalise`, `coarse_call`, and with `fine` `gs_pair.fine_load`
-    (both models read and moved to the device) and `fine_call`."""
+    (both models moved to the device) and `fine_call`."""
     dev = resolve_device(device)
     cfg = cfg or make_cfg()
     point_limit = point_limit or cfg.train.point_limit
 
     with annotate("gs_pair.extract"):
-        ref_points, ref_feats = load_point_cloud_from_gs_ply(ref_ply_path, point_limit,
-                                                             seed=seed)
-        src_points, src_feats = load_point_cloud_from_gs_ply(src_ply_path, point_limit,
-                                                             seed=seed + 1)
+        ref = load_point_cloud_from_gs_ply(ref_ply_path, point_limit, seed=seed,
+                                           return_model=fine)
+        src = load_point_cloud_from_gs_ply(src_ply_path, point_limit, seed=seed + 1,
+                                           return_model=fine)
+    ref_points, ref_feats = ref[:2]
+    src_points, src_feats = src[:2]
     with annotate("gs_pair.normalise"):
         ref_n, src_n, _, _, ref_scale, src_scale, ref_center, src_center = (
             adjust_point_cloud_volume(ref_points, src_points, np.eye(3), np.zeros(3),
@@ -119,10 +124,9 @@ def register_gs_pair(
     }
     if fine:
         with annotate("gs_pair.fine_load"):
-            ref_g = to_device_gaussians(load_gaussians(ref_ply_path), max_fine_gaussians,
-                                        device=dev)
-            src_g = to_device_gaussians(load_gaussians(src_ply_path), max_fine_gaussians,
-                                        device=dev)
+            ref_g = to_device_gaussians(ref[2], max_fine_gaussians, device=dev)
+            src_g = to_device_gaussians(src[2], max_fine_gaussians, device=dev)
+        del ref, src  # the host models
         # the fine render compares views of the REF frame, so ref's cameras
         # are the right ones
         cams_path = cameras_json or find_cameras_json(ref_ply_path)

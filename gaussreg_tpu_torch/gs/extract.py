@@ -78,8 +78,12 @@ def load_point_cloud_from_gs_ply(
     transformation: Optional[np.ndarray] = None,
     view_rotation: Optional[np.ndarray] = None,
     seed: int = 0,
+    return_model: bool = False,
 ):
-    """reference dataset.py:122-130: extraction + FPS down to point_limit."""
+    """reference dataset.py:122-130: extraction + FPS down to point_limit.
+    Returns (points, features), and with `return_model` also the
+    GaussianModel read from `path`, so that a caller that needs the model
+    too reads the file once."""
     from gaussreg_tpu_torch.ops.subsample import furthest_point_sample_host
 
     model = load_gaussians(path)
@@ -90,6 +94,8 @@ def load_point_cloud_from_gs_ply(
         idx = furthest_point_sample_host(points, point_limit, seed=seed)
         points = points[idx]
         features = features[idx]
+    if return_model:
+        return points, features, model
     return points, features
 
 

@@ -1,4 +1,4 @@
-"""3D Gaussian Splatting .ply IO (pure numpy; no plyfile dependency). The
+"""3D Gaussian Splatting .ply IO (numpy; no plyfile dependency). The
 port's copy of gaussreg_tpu/gs/ply.py.
 
 Reads/writes the standard 3DGS point_cloud.ply layout:
@@ -6,15 +6,22 @@ x y z nx ny nz f_dc_{0..2} f_rest_{0..44} opacity scale_{0..2} rot_{0..3}
 (reference: gs_fusion.py:172-229 construct_list_of_attributes/load_ply/save_ply).
 
 Only `binary_little_endian 1.0` and `ascii 1.0` formats with float32
-properties are supported — that is what 3DGS emits.
+properties are supported — that is what 3DGS emits. Binary vertex data
+is read as one block. Every read counts one `gs.ply_reads` in
+`ops._cuda.launch_counts()`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 import numpy as np
+from numpy.lib.recfunctions import structured_to_unstructured
+
+from gaussreg_tpu_torch.ops import _cuda
+
+READS = _cuda.counter("gs.ply_reads")
 
 _DTYPES = {
     "float": np.float32,
@@ -34,8 +41,9 @@ _DTYPES = {
 }
 
 
-def read_ply_vertex(path: str) -> Dict[str, np.ndarray]:
-    """Parse the 'vertex' element of a PLY file into {property: (N,) array}."""
+def _read_vertex(path: str) -> np.ndarray:
+    """The 'vertex' element of a PLY file as a structured (N,) array, one
+    field a property. Binary data is read into the array as one block."""
     with open(path, "rb") as f:
         header_lines: List[str] = []
         while True:
@@ -66,24 +74,37 @@ def read_ply_vertex(path: str) -> Dict[str, np.ndarray]:
         if fmt not in ("binary_little_endian", "ascii"):
             raise ValueError(f"{path}: unsupported PLY format {fmt}")
 
-        out: Dict[str, np.ndarray] = {}
+        READS.launches += 1
+        vertex = None
         for name, count, props in elements:
-            dtype = np.dtype([(p, d) for p, d in props])
+            data = np.empty(count, np.dtype([(p, d) for p, d in props]))
             if fmt == "binary_little_endian":
-                data = np.frombuffer(f.read(dtype.itemsize * count), dtype=dtype)
+                if f.readinto(data.view(np.uint8)) != data.nbytes:
+                    raise ValueError(f"{path}: truncated PLY {name} data")
             else:
                 rows = np.loadtxt(
                     (f.readline() for _ in range(count)), dtype=np.float64, ndmin=2
                 )
-                data = np.zeros(count, dtype=dtype)
                 for i, (p, d) in enumerate(props):
                     data[p] = rows[:, i].astype(d)
             if name == "vertex":
-                for p, _ in props:
-                    out[p] = np.ascontiguousarray(data[p])
-        if not out:
-            raise ValueError(f"{path}: no vertex element")
-        return out
+                vertex = data
+    if vertex is None:
+        raise ValueError(f"{path}: no vertex element")
+    return vertex
+
+
+def _stack(vertex: np.ndarray, names: Sequence[str]) -> np.ndarray:
+    """The named fields of `vertex` as a new C-contiguous (N, len(names))
+    array; adjacent fields in order are copied as one strided block."""
+    cols = structured_to_unstructured(vertex[list(names)])
+    return cols.copy() if np.may_share_memory(cols, vertex) else cols
+
+
+def read_ply_vertex(path: str) -> Dict[str, np.ndarray]:
+    """Parse the 'vertex' element of a PLY file into {property: (N,) array}."""
+    vertex = _read_vertex(path)
+    return {p: np.ascontiguousarray(vertex[p]) for p in vertex.dtype.names}
 
 
 def write_ply_vertex(path: str, columns: Dict[str, np.ndarray]) -> None:
@@ -129,28 +150,26 @@ class GaussianModel:
 
 
 def load_gaussians(path: str, max_sh_degree: int = 3) -> GaussianModel:
-    """reference: gs_fusion.py:195-229 (load_ply)."""
-    v = read_ply_vertex(path)
-    n = v["x"].shape[0]
-    xyz = np.stack([v["x"], v["y"], v["z"]], axis=1)
-    opacity = v["opacity"][:, None]
-    f_dc = np.stack([v["f_dc_0"], v["f_dc_1"], v["f_dc_2"]], axis=1)[:, :, None]
+    """reference: gs_fusion.py:195-229 (load_ply). Each field is its own
+    C-contiguous array."""
+    v = _read_vertex(path)
+    n = v.shape[0]
+
+    def numbered(prefix):
+        return sorted(
+            (k for k in v.dtype.names if k.startswith(prefix)),
+            key=lambda s: int(s.split("_")[-1]),
+        )
+
+    xyz = _stack(v, ["x", "y", "z"])
+    opacity = _stack(v, ["opacity"])
+    f_dc = _stack(v, ["f_dc_0", "f_dc_1", "f_dc_2"])[:, :, None]
     num_rest = 3 * (max_sh_degree + 1) ** 2 - 3
-    rest_names = sorted(
-        (k for k in v if k.startswith("f_rest_")), key=lambda s: int(s.split("_")[-1])
-    )
+    rest_names = numbered("f_rest_")
     assert len(rest_names) == num_rest, (path, len(rest_names))
-    f_rest = np.stack([v[k] for k in rest_names], axis=1).reshape(
-        n, 3, (max_sh_degree + 1) ** 2 - 1
-    )
-    scale_names = sorted(
-        (k for k in v if k.startswith("scale_")), key=lambda s: int(s.split("_")[-1])
-    )
-    scales = np.stack([v[k] for k in scale_names], axis=1)
-    rot_names = sorted(
-        (k for k in v if k.startswith("rot_")), key=lambda s: int(s.split("_")[-1])
-    )
-    rots = np.stack([v[k] for k in rot_names], axis=1)
+    f_rest = _stack(v, rest_names).reshape(n, 3, (max_sh_degree + 1) ** 2 - 1)
+    scales = _stack(v, numbered("scale_"))
+    rots = _stack(v, numbered("rot_"))
     return GaussianModel(xyz, f_dc, f_rest, opacity, scales, rots)
 
 

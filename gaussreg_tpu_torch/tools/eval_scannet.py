@@ -80,7 +80,6 @@ def main(argv=None) -> int:
             fine_register,
             to_device_gaussians,
         )
-        from gaussreg_tpu_torch.gs.ply import load_gaussians
 
     dev = resolve_device("cpu" if args.cpu else None)
     cfg = make_tiny_cfg() if args.tiny else make_cfg()
@@ -128,12 +127,14 @@ def main(argv=None) -> int:
         scene_path = os.path.join(args.scannet_path, "test", str(scene))
         ref_ply = os.path.join(scene_path, "A/output/point_cloud/iteration_10000/point_cloud.ply")
         src_ply = os.path.join(scene_path, "B/output/point_cloud/iteration_10000/point_cloud.ply")
-        ref_points, ref_feats = load_point_cloud_from_gs_ply(
-            ref_ply, args.num_sample, transformation=ref_list[scene]
+        ref = load_point_cloud_from_gs_ply(
+            ref_ply, args.num_sample, transformation=ref_list[scene], return_model=args.fine
         )
-        src_points, src_feats = load_point_cloud_from_gs_ply(
-            src_ply, args.num_sample, transformation=src_list[scene]
+        src = load_point_cloud_from_gs_ply(
+            src_ply, args.num_sample, transformation=src_list[scene], return_model=args.fine
         )
+        ref_points, ref_feats = ref[:2]
+        src_points, src_feats = src[:2]
         gt = gt_list[scene]
         ref_n, src_n, _, _, ref_scale, src_scale, ref_center, src_center = (
             adjust_point_cloud_volume(
@@ -157,10 +158,9 @@ def main(argv=None) -> int:
             src_t44 = np.eye(4, dtype=np.float64)
             src_t44[:3, :4] = np.asarray(src_list[scene])[:3, :4]
             t_raw = np.linalg.inv(ref_t44) @ est.astype(np.float64) @ src_t44
-            ref_g = to_device_gaussians(load_gaussians(ref_ply), args.max_fine_gaussians,
-                                        device=dev)
-            src_g = to_device_gaussians(load_gaussians(src_ply), args.max_fine_gaussians,
-                                        device=dev)
+            ref_g = to_device_gaussians(ref[2], args.max_fine_gaussians, device=dev)
+            src_g = to_device_gaussians(src[2], args.max_fine_gaussians, device=dev)
+            del ref, src  # the host models
             cams_path = find_cameras_json(ref_ply)
             if cams_path is not None:
                 cams = load_cameras_json(cams_path, max_cameras=args.fine_views, max_size=640)

@@ -158,6 +158,23 @@ def test_eval_scannet_tiny_cpu(fake_root, tmp_path, capsys):
     _estimates(out)
 
 
+def test_eval_scannet_fine_reads_each_model_once(fake_root, tmp_path, capsys):
+    """--fine refines from the models that the extraction read: one read of
+    each .ply a scene."""
+    from gaussreg_tpu_torch.ops import _cuda
+    from gaussreg_tpu_torch.tools import eval_scannet
+
+    out = str(tmp_path / "eval_out")
+    before = _cuda.launch_counts()["gs.ply_reads"]
+    rc = eval_scannet.main(["--scannet_path", fake_root, "--output_path", out,
+                            "--num_sample", "600", "--limit_scenes", "2", "--tiny", "--cpu",
+                            "--fine", "--fine_steps", "2", "--fine_views", "1",
+                            "--max_fine_gaussians", "1000"])
+    assert rc == 0 and f"[2/2] {SCENES[1]}: RRE" in capsys.readouterr().out
+    assert _cuda.launch_counts()["gs.ply_reads"] - before == 4
+    _estimates(out)
+
+
 def test_eval_scannet_released_weights_path(fake_root, tmp_path, capsys):
     """--tiny_capacities --torch_snapshot: a full-format reference snapshot
     is converted, the per-layer geometry detected, and the recalls
